@@ -1,0 +1,1 @@
+"""data subpackage of groomed_nms_torch."""

@@ -1,0 +1,1 @@
+"""models subpackage of groomed_nms_torch."""

@@ -1,0 +1,1 @@
+"""ops subpackage of groomed_nms_torch."""

@@ -1,0 +1,76 @@
+"""Build and load the CUDA C++ kernels of ``groomed_nms_torch/csrc``.
+
+``nvcc`` compiles each source into a shared library with a plain C
+interface under ``build/groomed_nms_torch/`` at the checkout's root, at
+first use; ``ctypes`` loads it.  The library's file name carries a hash of
+the source and the flags, so an edited source is rebuilt and an unchanged one
+is reused.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "groomed_nms_torch"
+# -fmad=false and no fast math: no fused multiply-add, IEEE division, so a
+# kernel's float arithmetic rounds op by op as its plain PyTorch version's
+# separate ops do (csrc/greedy_nms.cu relies on it for exact keep masks)
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (on PATH or under /usr/local/cuda)")
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into a shared library; return its path.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills of every kernel) is kept beside the library as ``<name>.log``.
+    """
+    src = CSRC / source
+    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode())
+    lib = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, lib)           # atomic: concurrent builds agree
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib
+
+
+@functools.cache
+def greedy_nms_lib():
+    """The greedy-NMS library with its C entry's signature declared."""
+    lib = ctypes.CDLL(str(build("greedy_nms.cu")))
+    p = ctypes.c_void_p
+    lib.greedy_nms.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_float, ctypes.c_float, p]
+    lib.greedy_nms.restype = ctypes.c_int
+    return lib

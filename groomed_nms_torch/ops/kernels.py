@@ -1,0 +1,203 @@
+"""The two hand-written Hopper kernels of the inference path.
+
+K1 ``fused_head_scores`` (Triton) replaces the TPU kernel
+``groomed_nms_tpu/ops/pallas_kernels.py::fused_head_scores``: per anchor,
+``max_{i>=1} softmax(l)_i`` over the first C logits of the head tensor,
+times the acceptance probability when one is given.
+
+K2 ``greedy_nms`` (CUDA C++, ``csrc/greedy_nms.cu``) replaces
+``groomed_nms_tpu/ops/pallas_kernels.py::greedy_nms_pallas``: batched exact
+greedy NMS over score-sorted rows.
+
+Each wrapper checks its inputs and dispatches on the tensors' device: on the
+CPU it runs the kernel's plain PyTorch version (``*_plain``, the oracle the
+CPU tests hold against the JAX kernels), on a CUDA device it launches the
+kernel, and on any other device it raises.  ``<wrapper>.launches`` counts the
+kernel launches (plain-version calls are not counted).  Triton is imported
+and the CUDA library built only when a kernel is first launched.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import _build
+
+_HEAD_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_SCORE_BLOCK = 1024          # head rows per Triton program
+_NMS_BLOCK = 64              # rows / columns per uint64 mask word
+# the sweep's removed bitset (one word per 64 rows) and its 584 bytes of
+# static shared memory stay under the 48 KB a block gets without opting in
+_NMS_MAX_N = 64 * 6000
+
+
+def _device_kind(t):
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return kind
+
+
+# ---------------------------------------------------------------------------
+# K1: fused head scores (Triton)
+# ---------------------------------------------------------------------------
+
+def fused_head_scores_plain(fused, accept=None, *, num_classes):
+    """The formula of K1 in PyTorch, in f32: [B, R, per] -> [B, R]."""
+    logits = fused[..., :num_classes].float()
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    s = e[..., 1:].amax(-1) / e.sum(-1)
+    return s * accept if accept is not None else s
+
+
+@functools.cache
+def _head_scores_kernel():
+    """Compile-on-first-use Triton kernel.
+
+    Bound on this card by memory alone: at the main-path shape it reads the
+    bf16 head tensor [8, 126720, 18] (36.5 MB; the C=4 logits sit in the
+    first 8 bytes of every 36-byte row, so nearly every 32-byte sector is
+    touched), the f32 acceptance (4.05 MB) and writes 4.05 MB of f32.  One
+    program takes a block of rows: a masked load of the first C channels
+    (the ragged tail and the 36-byte row stride are handled by the masks and
+    the offsets), then max, exp and sum in registers in f32 -- one pass, no
+    softmax tensor is ever written.
+    """
+    # `tl` is made a module global so that the kernel body below, which
+    # Triton compiles from source, finds it in the module's namespace
+    global tl
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def head_scores(x_ptr, a_ptr, out_ptr, n_rows, per,
+                    C: tl.constexpr, CP: tl.constexpr,
+                    HAS_ACCEPT: tl.constexpr, BLOCK: tl.constexpr):
+        rows = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        cols = tl.arange(0, CP)
+        row_ok = rows < n_rows
+        ptrs = x_ptr + rows.to(tl.int64)[:, None] * per + cols[None, :]
+        ok = row_ok[:, None] & (cols[None, :] < C)
+        x = tl.load(ptrs, mask=ok, other=float("-inf")).to(tl.float32)
+        m = tl.max(x, axis=1)
+        e = tl.exp(x - m[:, None])                 # padded columns -> 0
+        s = tl.sum(e, axis=1)
+        fg = tl.max(tl.where(cols[None, :] >= 1, e, 0.0), axis=1)
+        score = fg / s
+        if HAS_ACCEPT:
+            score = score * tl.load(a_ptr + rows, mask=row_ok, other=0.0)
+        tl.store(out_ptr + rows, score, mask=row_ok)
+
+    return triton, head_scores
+
+
+def fused_head_scores(fused, accept=None, *, num_classes):
+    """Detection score per anchor: ``max(softmax(fused[..., :C])[1:])``,
+    times ``accept`` when given.
+
+    ``fused`` [B, R, per] bf16/f16/f32 contiguous (class logits in channels
+    [0, C)); ``accept`` [B, R] f32 contiguous or None.  Returns [B, R] f32.
+    """
+    if fused.dim() != 3 or fused.dtype not in _HEAD_DTYPES:
+        raise ValueError(f"fused must be [B, R, per] of {_HEAD_DTYPES}, got "
+                         f"{tuple(fused.shape)} {fused.dtype}")
+    b, r, per = fused.shape
+    if not 2 <= num_classes <= per:
+        raise ValueError(f"num_classes={num_classes} with per={per}")
+    if not fused.is_contiguous():
+        raise ValueError("fused must be contiguous")
+    if accept is not None and (
+            accept.shape != (b, r) or accept.dtype != torch.float32
+            or accept.device != fused.device or not accept.is_contiguous()):
+        raise ValueError(f"accept must be a contiguous f32 [{b}, {r}] on "
+                         f"{fused.device}, got {tuple(accept.shape)} "
+                         f"{accept.dtype} on {accept.device}")
+    if _device_kind(fused) == "cpu":
+        return fused_head_scores_plain(fused, accept, num_classes=num_classes)
+
+    triton, kernel = _head_scores_kernel()
+    out = torch.empty((b, r), dtype=torch.float32, device=fused.device)
+    n_rows = b * r
+    with torch.cuda.device(fused.device):
+        kernel[(triton.cdiv(n_rows, _SCORE_BLOCK),)](
+            fused, accept if accept is not None else out, out, n_rows, per,
+            C=num_classes, CP=triton.next_power_of_2(num_classes),
+            HAS_ACCEPT=accept is not None, BLOCK=_SCORE_BLOCK, num_warps=4)
+    fused_head_scores.launches += 1
+    return out
+
+
+fused_head_scores.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: batched greedy NMS (CUDA C++)
+# ---------------------------------------------------------------------------
+
+def greedy_nms_plain(boxes, scores, *, nms_threshold=0.4, shift=1.0):
+    """K2's function in PyTorch: a sequential greedy loop over the
+    [B, N, N] overlap matrix, the IoU in ``_nms_kernel``'s operation order."""
+    n = boxes.shape[1]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1 + shift) * (y2 - y1 + shift)
+    iw = (torch.minimum(x2[:, :, None], x2[:, None, :])
+          - torch.maximum(x1[:, :, None], x1[:, None, :]) + shift).clamp_min(0.0)
+    ih = (torch.minimum(y2[:, :, None], y2[:, None, :])
+          - torch.maximum(y1[:, :, None], y1[:, None, :]) + shift).clamp_min(0.0)
+    inter = iw * ih
+    union = (area[:, :, None] + area[:, None, :] - inter).clamp_min(1e-12)
+    later = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)
+    over = (inter / union > nms_threshold) & later      # row i suppresses j>i
+    alive = scores > 0
+    for i in range(n):
+        alive &= ~(over[:, i] & alive[:, i:i + 1])
+    return alive
+
+
+def greedy_nms(boxes, scores, *, nms_threshold=0.4, shift=1.0):
+    """Batched exact greedy NMS; rows must be score-sorted per image.
+
+    ``boxes`` [B, N, 4] f32 and ``scores`` [B, N] f32, contiguous, on one
+    device; rows with score <= 0 are padding (never kept, suppress nothing).
+    IoU uses the ``+shift`` pixel convention; a row is suppressed when its
+    IoU with a kept earlier row is > ``nms_threshold``.  Returns keep [B, N]
+    bool.
+    """
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
+        raise ValueError(f"boxes must be [B, N, 4] and scores [B, N], got "
+                         f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise ValueError(f"boxes and scores must be f32, got {boxes.dtype} "
+                         f"and {scores.dtype}")
+    if scores.device != boxes.device:
+        raise ValueError(f"boxes on {boxes.device}, scores on {scores.device}")
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError("boxes and scores must be contiguous")
+    if _device_kind(boxes) == "cpu":
+        return greedy_nms_plain(boxes, scores, nms_threshold=nms_threshold,
+                                shift=shift)
+
+    b, n = scores.shape
+    if n > _NMS_MAX_N or b > 65535:
+        raise ValueError(f"greedy_nms takes B <= 65535 and N <= {_NMS_MAX_N},"
+                         f" got B={b}, N={n}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned (rows load as float4)")
+    lib = _build.greedy_nms_lib()
+    words = -(-n // _NMS_BLOCK)
+    mask = torch.empty((b, n, words), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        err = lib.greedy_nms(
+            boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(),
+            keep.data_ptr(), b, n, float(nms_threshold), float(shift),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"greedy_nms kernel launch failed: CUDA error {err}")
+    greedy_nms.launches += 1
+    return keep
+
+
+greedy_nms.launches = 0

@@ -1,0 +1,1 @@
+"""utils subpackage of groomed_nms_torch."""

@@ -1,0 +1,126 @@
+"""The port's kernels on a CUDA card against their plain versions.
+
+Marked ``cuda``; each test skips when ``torch.cuda.is_available()`` is
+False (decided in a fixture, never at import).  This file imports no JAX, so
+on a machine without JAX it runs on its own:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from groomed_nms_torch.anchors import locate_anchors
+from groomed_nms_torch.eval.tester import make_infer
+from groomed_nms_torch.inference import DetectConfig
+from groomed_nms_torch.models.densenet import tiny_densenet_config
+from groomed_nms_torch.models.rpn_3d import RPN3D, RPNConfig
+from groomed_nms_torch.ops import kernels
+from groomed_nms_torch.utils.weights import init_weights
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,r,per,c", [(8, 126720, 18, 4), (1, 1, 18, 4),
+                                       (3, 1300, 19, 4), (2, 1025, 9, 2)])
+def test_head_scores_kernel_matches_plain(cuda, b, r, per, c, dtype):
+    g = torch.Generator().manual_seed(r)
+    fused = (torch.randn((b, r, per), generator=g) * 3).to(dtype).to(cuda)
+    accept = (torch.rand((b, r), generator=g) * 0.9 + 0.1).to(cuda)
+    for acc in (None, accept):
+        before = kernels.fused_head_scores.launches
+        got = kernels.fused_head_scores(fused, acc, num_classes=c)
+        assert kernels.fused_head_scores.launches == before + 1
+        ref = kernels.fused_head_scores_plain(fused, acc, num_classes=c)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (b, r)
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+
+
+def _nms_case(rs, b, n):
+    """Clustered, score-sorted boxes with equal scores, padding rows and
+    same-size pairs at IoU (W-d)/(W+d) ~ 0.4 (d = 3W/7)."""
+    boxes = np.zeros((b, n, 4), np.float32)
+    for i in range(b):
+        centers = rs.uniform([0, 0], [1200, 350], (16, 2))
+        c = centers[rs.integers(0, 16, n)] + rs.normal(0, 8, (n, 2))
+        wh = rs.uniform(20, 160, (n, 2))
+        boxes[i, :, :2] = c - wh / 2
+        boxes[i, :, 2:] = c + wh / 2
+        for j in range(1, n, 5):
+            w = boxes[i, j - 1, 2] - boxes[i, j - 1, 0] + 1.0
+            d = np.float32(3.0 * w / 7.0) * np.float32(
+                1.0 + 1e-5 * rs.integers(-2, 3))
+            boxes[i, j] = boxes[i, j - 1] + np.array([d, 0, d, 0], np.float32)
+    scores = -np.sort(-np.round(rs.uniform(0.05, 1, (b, n)), 2), axis=1)
+    scores = scores.astype(np.float32)
+    scores[:, n - n // 10:] = 0.0
+    return boxes, scores
+
+
+@pytest.mark.parametrize("b,n", [(8, 3000), (1, 1), (2, 63), (2, 64), (3, 65),
+                                 (4, 700)])
+def test_greedy_nms_kernel_matches_plain(cuda, b, n):
+    boxes, scores = _nms_case(np.random.default_rng(n), b, n)
+    boxes, scores = torch.from_numpy(boxes).to(cuda), \
+        torch.from_numpy(scores).to(cuda)
+    before = kernels.greedy_nms.launches
+    keep = kernels.greedy_nms(boxes, scores, nms_threshold=0.4, shift=1.0)
+    assert kernels.greedy_nms.launches == before + 1
+    ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4,
+                                   shift=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, ref)
+
+
+def test_greedy_nms_kernel_refuses_misaligned_boxes(cuda):
+    flat = torch.zeros(1 + 2 * 10 * 4, device=cuda)
+    boxes = flat[1:].view(2, 10, 4)
+    with pytest.raises(ValueError):
+        kernels.greedy_nms(boxes, torch.ones(2, 10, device=cuda))
+
+
+def test_slice_on_cuda_matches_cpu(cuda):
+    """The tiny model end to end: kernels on the card vs plain versions on
+    the CPU, f32 with TF32 off, same seeded weights and frames."""
+    cfg = RPNConfig(num_anchors=6, prop_features=64,
+                    predict_acceptance_prob=True,
+                    backbone=tiny_densenet_config())
+    rs = np.random.default_rng(0)
+    priors = np.concatenate([np.tile([[0, 0, 30, 20]], (6, 1)) * rs.uniform(
+        0.5, 2, (6, 1)), np.abs(rs.normal(size=(6, 7))) + 1], 1)
+    rois = locate_anchors(priors, (4, 8), 16)
+    inputs = [rs.integers(0, 256, (2, 48, 96, 3)).astype(np.uint8),
+              np.asarray([0.485, 0.456, 0.406]), np.asarray([0.229, 0.224,
+                                                             0.225]),
+              rois, priors[rois[:, 4].astype(int), 4:],
+              np.tile(np.diag([700.0, 700.0, 1.0, 1.0]), (2, 1, 1)),
+              np.tile(np.diag([1 / 700.0, 1 / 700.0, 1.0, 1.0]), (2, 1, 1)),
+              np.full(2, 64 / 48), np.zeros(13), np.ones(13)]
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for device in ("cpu", cuda):
+            model = init_weights(RPN3D(cfg), torch.Generator().manual_seed(0))
+            infer = make_infer(model.to(device), DetectConfig(), 64, 128)
+            args = [torch.as_tensor(x, device=device,
+                                    dtype=torch.uint8 if i == 0 else
+                                    torch.float32)
+                    for i, x in enumerate(inputs)]
+            results.append([t.cpu() for t in infer(*args)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (dets_c, valid_c), (dets_g, valid_g) = results
+    assert torch.equal(valid_g, valid_c) and valid_c.any()
+    torch.testing.assert_close(dets_g[valid_c], dets_c[valid_c], rtol=1e-4,
+                               atol=1e-3)

@@ -1,0 +1,91 @@
+"""The PyTorch package as a whole: no JAX at run time, and its configs."""
+
+import dataclasses
+import filecmp
+import os
+import subprocess
+import sys
+
+import pytest
+
+from groomed_nms_tpu import config as jax_config
+
+from groomed_nms_torch import config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_package_imports_without_jax():
+    """Every module of groomed_nms_torch imports with jax and flax absent
+    from sys.modules.  A subprocess, because this process (conftest.py)
+    has imported jax already."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import groomed_nms_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 15
+
+
+def test_config_jsons_regenerate_identically(tmp_path):
+    """The checked-in JSONs equal a fresh dump of the JAX configs."""
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "dump_torch_configs.py"),
+         "--out", str(tmp_path)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr
+    fresh = sorted(os.listdir(tmp_path))
+    assert fresh == sorted(f"{n}.json" for n in config.config_names())
+    match, mismatch, errors = filecmp.cmpfiles(
+        tmp_path, config.CONFIG_DIR, fresh, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+
+
+def test_experiment_config_fields_match_jax():
+    ours = {f.name: f.default for f in dataclasses.fields(
+        config.ExperimentConfig)}
+    theirs = {f.name: f.default for f in dataclasses.fields(
+        jax_config.ExperimentConfig)}
+    assert ours == theirs
+
+
+def _norm(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else v
+
+
+@pytest.mark.parametrize("name", ["groomed_nms", "kitti_3d_uncertainty",
+                                  "groomed_nms_acceptance_classify",
+                                  "tiny_video_synthetic"])
+def test_derived_configs_match_jax(name):
+    ours = config.load_config(name)
+    theirs = jax_config.load_config(name)
+    assert ours == config.ExperimentConfig(**{
+        k: tuple(v) if isinstance(v, list) else v
+        for k, v in dataclasses.asdict(theirs).items()})
+    d_ours = dataclasses.asdict(ours.detect_config())
+    d_theirs = dataclasses.asdict(theirs.detect_config())
+    assert d_ours == {k: d_theirs[k] for k in d_ours}
+    r_ours, r_theirs = ours.rpn_config(36), theirs.rpn_config(36)
+    for f in dataclasses.fields(r_ours):
+        if f.name != "backbone":
+            assert getattr(r_ours, f.name) == getattr(r_theirs, f.name)
+    for f in dataclasses.fields(r_ours.backbone):
+        if f.name != "bn_momentum":
+            assert _norm(getattr(r_ours.backbone, f.name)) == \
+                _norm(getattr(r_theirs.backbone, f.name)), f.name
+    # torch momentum is the batch weight, flax momentum the decay
+    assert r_ours.backbone.bn_momentum == pytest.approx(
+        1.0 - r_theirs.backbone.bn_momentum)
+
+
+def test_unknown_config_raises():
+    with pytest.raises(ValueError):
+        config.load_config("no_such_config")
