@@ -5,9 +5,10 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the greedy-NMS library (csrc/greedy_nms.cu) into
-                build/groomed_nms_torch/, Triton compiles the head-score
-                kernel on its first launch;
+  2. build   -- nvcc builds the greedy-NMS and dense-block libraries
+                (csrc/greedy_nms.cu, csrc/dense_block.cu), both at once, into
+                build/groomed_nms_torch/ and prints their -Xptxas -v logs;
+                Triton compiles the head-score kernel on its first launch;
   3. K1      -- fused_head_scores against its plain version at the main-path
                 shape [8, 126720, 18] bf16, with and without acceptance;
   4. K2      -- greedy_nms against its plain version at [8, 3000, 4] with
@@ -18,32 +19,63 @@ Phases, in order; any failure raises and exits non-zero:
                 make_infer: checked against the CPU path at a small size,
                 then timed; both kernels must launch once per batch; the
                 detections must be finite and write 8 KITTI txt files;
-  6. the last line: {"ok": true, "device": {...}}.
+  6. K4     -- dense_block_eval against its plain version at the flagship's
+                block-1 [8, 64, 128, 440] -> 256 ch and block-2
+                [8, 128, 64, 220] -> 512 ch shapes, bf16, seeded input and
+                folded affines; relative errors, kernel and plain times,
+                TFLOP/s;
+  7. fast_eval -- the weight-folded engine: (a) on the card against the CPU
+                path at 2x64x128 bf16; (b) against the rpn3d engine at full
+                size from one RPN3D with perturbed BatchNorm statistics;
+                (c) the flagship through make_infer with engine="fast_eval",
+                timed: K4 twice per batch, K1 and K2 once; trunk breakdown;
+  8. the kernels JSON line, then the last line:
+     {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
-numpy and groomed_nms_torch only.
+numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
+run; every error is printed before it is checked.
 """
 
+import copy
 import json
 import os
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from groomed_nms_torch.config import load_config
 from groomed_nms_torch.data.augment import preprocess_images
-from groomed_nms_torch.flagship import build_flagship
-from groomed_nms_torch.inference import (decode_detections, nms_and_topk,
-                                         rpn_outputs_dict, select_top_pre_nms,
+from groomed_nms_torch.flagship import NUM_ANCHORS, build_flagship
+from groomed_nms_torch.inference import (decode_detections, im_detect_3d,
+                                         nms_and_topk, rpn_outputs_dict,
+                                         select_top_pre_nms,
                                          write_kitti_detections)
+from groomed_nms_torch.models.fast_eval import FastEvalRPN3D, KernelDenseBlock
+from groomed_nms_torch.models.rpn_3d import RPN3D
 from groomed_nms_torch.ops import _build, kernels
+from groomed_nms_torch.ops.iou import pairwise_iou
+from groomed_nms_torch.utils.weights import init_weights
 
 K1_SHAPE = (8, 126720, 18)            # 32 x 110 x 36 anchors, bf16 head
 K2_SHAPE = (8, 3000)                  # nms_topN_pre rows per image
 WARMUP, TIMED = 3, 10
 KITTI_CLASSES = ["Car", "Pedestrian", "Cyclist"]
+# K4 at the flagship's kernel blocks: (B, c0, H, W, L, G, bw, dilation)
+K4_BLOCKS = {"block1": (8, 64, 128, 440, 6, 32, 128, 1),
+             "block2": (8, 128, 64, 220, 12, 32, 128, 1)}
+# K4 vs its plain version over the new channels: max |err| / max |ref| and
+# mean |err| / mean |ref|; the two sum in other orders, so a bf16 rounding
+# of h or of an output may land one step (2^-8 relative) apart
+K4_MAX_REL, K4_MEAN_REL = 1e-2, 1e-3
+# the fast_eval engine, fused_raw: max |err| / max |ref|, mean |err| / mean
+# |ref| (121 bf16 layers summed in other orders; against rpn3d also the
+# folded BatchNorm applied in bf16, where autocast applies it in f32), and
+# the acceptance probability's max |err| against the CPU path
+FE_MAX_REL, FE_MEAN_REL, FE_ACCEPT_ATOL = 0.05, 0.02, 0.02
 
 
 def card_line():
@@ -71,6 +103,58 @@ def time_ms(fn, reps, flush):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def rel_err(got, ref):
+    """(max |err| / max |ref|, mean |err| / mean |ref|, max |err|)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    return ((err.max() / ref.abs().max()).item(),
+            (err.mean() / ref.abs().mean()).item(), err.max().item())
+
+
+def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev):
+    """Seeded block input and K4's packed bf16 weights: folded affines with
+    mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal kernels."""
+    cmax = c0 + layers * growth
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(
+            torch.bfloat16)
+
+    x0 = t(rs.normal(size=(b, c0, h, w))).contiguous(
+        memory_format=torch.channels_last)
+    return (x0, t(rs.uniform(0.5, 1.5, (layers, cmax))),
+            t(rs.normal(0, 0.2, (layers, cmax))),
+            t(rs.normal(size=(layers, bw, cmax)) / np.sqrt(cmax)),
+            t(rs.uniform(0.5, 1.5, (layers, bw))),
+            t(rs.normal(0, 0.2, (layers, bw))),
+            t(rs.normal(size=(layers, growth, 9 * bw)) / np.sqrt(9 * bw)))
+
+
+def dense_block_gflop(b, c0, h, w, layers, growth, bw):
+    """The block's conv work: 2 * pixels * bw * (sum of cin + 9 * G * L)."""
+    k1 = sum(c0 + l * growth for l in range(layers))
+    return 2.0 * b * h * w * bw * (k1 + 9 * growth * layers) / 1e9
+
+
+def perturbed_rpn3d(seed):
+    """The flagship RPN3D (seeded init) with every BatchNorm's affine and
+    running statistics drawn from a seeded generator, so a fold is tested:
+    weight ~ U(0.5, 1.5), bias ~ N(0, 0.2), mean ~ N(0, 0.2),
+    var ~ U(0.5, 1.5)."""
+    model = RPN3D(load_config("groomed_nms").rpn_config(NUM_ANCHORS))
+    init_weights(model, torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(n, generator=g) * 0.2)
+                m.running_mean.copy_(torch.randn(n, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+    return model.eval()
 
 
 def nms_case(rs, b, n):
@@ -109,11 +193,16 @@ def main():
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.build("greedy_nms.cu")
+    sources = ("greedy_nms.cu", "dense_block.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source
+        libs = list(pool.map(_build.build, sources))
     _build.greedy_nms_lib()
-    print(f"build: nvcc greedy_nms.cu -> {lib.name} in "
+    _build.dense_block_lib()
+    print(f"build: nvcc {' + '.join(sources)} -> "
+          f"{', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    for lib in libs:
+        print(lib.with_suffix(".log").read_text().strip(), flush=True)
     t0 = time.perf_counter()
     kernels.fused_head_scores(
         torch.zeros((1, 64, 18), dtype=torch.bfloat16, device=dev),
@@ -252,7 +341,142 @@ def main():
     print(f"breakdown ms/batch-8: {json.dumps(breakdown)} {stamp}",
           flush=True)
 
-    # -- 6. results -----------------------------------------------------------
+    # -- 6. K4 --------------------------------------------------------------
+    # the plain version's products in full f32 (no TF32), from the same
+    # bf16-rounded operands as the kernel's
+    torch.backends.cudnn.allow_tf32 = False
+    k4 = {}
+    for i, (name, shape) in enumerate(K4_BLOCKS.items()):
+        *dims, dil = shape
+        c0 = dims[1]
+        bargs = dense_block_case(np.random.default_rng(10 + i), *dims, dev)
+        got = kernels.dense_block_eval(*bargs, dilation=dil)
+        ref = kernels.dense_block_eval_plain(*bargs, dilation=dil)
+        max_rel, mean_rel, max_abs = rel_err(got[:, c0:], ref[:, c0:])
+        same_x0 = torch.equal(got[:, :c0], bargs[0])
+        print(f"K4 dense_block_eval {name} {list(dims[:4])} -> "
+              f"{list(got.shape)} L={dims[4]} bf16: max|err|/max|ref| "
+              f"{max_rel:.3e} (tol "
+              f"{K4_MAX_REL:g}), mean|err|/mean|ref| {mean_rel:.3e} (tol "
+              f"{K4_MEAN_REL:g}), max|err| {max_abs:.3e}, input channels "
+              f"copied exactly: {same_x0}", flush=True)
+        assert same_x0 and max_rel <= K4_MAX_REL and mean_rel <= K4_MEAN_REL, \
+            f"K4 disagrees with its plain version at {name}"
+        del got, ref
+        ms = time_ms(lambda: kernels.dense_block_eval(*bargs, dilation=dil),
+                     20, flush)
+        plain_ms = time_ms(lambda: kernels.dense_block_eval_plain(
+            *bargs, dilation=dil), 3, flush)
+        gflop = dense_block_gflop(*dims)
+        print(f"K4 {name}: {gflop:.1f} GFLOP; kernel {ms:.4f} ms "
+              f"({gflop / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
+              f"({gflop / plain_ms:.1f} TFLOP/s) {stamp}", flush=True)
+        k4[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max_abs,
+                        max_rel=max_rel, mean_rel=mean_rel)
+    torch.backends.cudnn.allow_tf32 = True
+
+    # -- 7. fast_eval slice --------------------------------------------------
+    # (a) the engine on the card against the engine on the CPU (its plain
+    # path), bf16 both, at 2x64x128, same seeded weights and input
+    rpn = perturbed_rpn3d(seed=3)
+    engine_cpu = FastEvalRPN3D(rpn, torch.bfloat16)
+    engine_gpu = copy.deepcopy(engine_cpu).to(
+        dev, memory_format=torch.channels_last)
+    x = torch.randn((2, 3, 64, 128), generator=torch.Generator().manual_seed(
+        4)).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        out_c = engine_cpu(x)
+        out_g = engine_gpu(x.to(dev))
+    max_rel, mean_rel, _ = rel_err(out_g.fused_raw.cpu(), out_c.fused_raw)
+    acc_err = (out_g.accept_prob.cpu() - out_c.accept_prob).abs().max().item()
+    print(f"fast_eval (a): GPU vs CPU path at 2x64x128 bf16, fused_raw "
+          f"{list(out_c.fused_raw.shape)}: max|err|/max|ref| {max_rel:.3e} "
+          f"(tol {FE_MAX_REL:g}), mean|err|/mean|ref| {mean_rel:.3e} (tol "
+          f"{FE_MEAN_REL:g}); accept_prob max|err| {acc_err:.3e} (tol "
+          f"{FE_ACCEPT_ATOL:g})", flush=True)
+    assert max_rel <= FE_MAX_REL and mean_rel <= FE_MEAN_REL and \
+        acc_err <= FE_ACCEPT_ATOL, "fast_eval on the card disagrees with CPU"
+    del engine_cpu, engine_gpu
+
+    # (b) against the rpn3d engine at full size, one perturbed RPN3D
+    rpn = rpn.to(dev, memory_format=torch.channels_last)
+    engine_full = FastEvalRPN3D(rpn, torch.bfloat16)
+    with torch.inference_mode():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out_r, out_f = rpn(images), engine_full(images)
+        det_args = (rois, rois_3d, p2, p2_inv, scale, bmeans, bstds, dcfg)
+        d_r, v_r = im_detect_3d(rpn_outputs_dict(out_r), *det_args)
+        d_f, v_f = im_detect_3d(rpn_outputs_dict(out_f), *det_args)
+    max_rel, mean_rel, _ = rel_err(out_f.fused_raw, out_r.fused_raw)
+    matched = total = 0
+    for i in range(batch):
+        a, b = d_r[i][v_r[i], :4], d_f[i][v_f[i], :4]
+        total += len(a)
+        if len(a) and len(b):
+            matched += int((pairwise_iou(a, b).amax(1) >= 0.9).sum())
+    print(f"fast_eval (b): vs rpn3d at 8x512x1760 bf16, perturbed BN, "
+          f"fused_raw {list(out_f.fused_raw.shape)}: max|err|/max|ref| "
+          f"{max_rel:.3e} (tol {FE_MAX_REL:g}), mean|err|/mean|ref| "
+          f"{mean_rel:.3e} (tol {FE_MEAN_REL:g}); top-40 overlap {matched} "
+          f"of {total} rpn3d rows (IoU >= 0.9 with a fast_eval row; "
+          f"{int(v_f.sum())} fast_eval rows)", flush=True)
+    assert max_rel <= FE_MAX_REL and mean_rel <= FE_MEAN_REL, \
+        "fast_eval disagrees with rpn3d"
+    del rpn, engine_full, out_r, out_f
+
+    # (c) the flagship through make_infer with engine="fast_eval", timed
+    infer_f, args_f, engine = build_flagship(device="cuda", engine="fast_eval")
+    for _ in range(WARMUP):
+        infer_f(*args_f)
+    torch.cuda.synchronize()
+    kernels.fused_head_scores.launches = 0
+    kernels.greedy_nms.launches = 0
+    kernels.dense_block_eval.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        dets, valid = infer_f(*args_f)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    fe_launches = {"fused_head_scores": kernels.fused_head_scores.launches,
+                   "greedy_nms": kernels.greedy_nms.launches,
+                   "dense_block_eval": kernels.dense_block_eval.launches}
+    assert fe_launches == {"fused_head_scores": TIMED, "greedy_nms": TIMED,
+                           "dense_block_eval": 2 * TIMED}, \
+        f"expected K4 twice and K1, K2 once per batch, got {fe_launches}"
+    dets, valid = dets.cpu(), valid.cpu()
+    assert dets.shape == (batch, 40, 17) and valid.shape == (batch, 40)
+    assert valid.any() and torch.isfinite(dets[valid]).all(), \
+        "no or non-finite fast_eval detections"
+    print(f"fast_eval (c): {TIMED} batches of {batch} at 512x1760 bf16 in "
+          f"{wall_f * 1e3:.1f} ms: {batch * TIMED / wall_f:.2f} img/s, "
+          f"{wall_f * 1e3 / TIMED:.2f} ms/batch; launches {fe_launches}; "
+          f"{int(valid.sum())} valid rows {stamp}", flush=True)
+
+    with torch.inference_mode():
+        bb = engine.backbone
+        x = bb.stem(images)
+        k4_inputs = []
+        for stage in bb.stages:
+            if isinstance(stage, KernelDenseBlock):
+                k4_inputs.append((stage, x))
+            x = stage(x)
+        (blk1, x1), (blk2, x2) = k4_inputs
+        fe_stages = {
+            "rpn3d trunk": lambda: forward(model.backbone),
+            "fast_eval trunk": lambda: bb(images),
+            "K4 block1": lambda: blk1(x1),
+            "K4 block2": lambda: blk2(x2),
+            "fast_eval model": lambda: engine(images),
+        }
+        fe_breakdown = {k: round(time_ms(fn, 5, flush), 4)
+                        for k, fn in fe_stages.items()}
+    fe_breakdown["fast_eval trunk outside K4"] = round(
+        fe_breakdown["fast_eval trunk"] - fe_breakdown["K4 block1"]
+        - fe_breakdown["K4 block2"], 4)
+    print(f"fast_eval breakdown ms/batch-8: {json.dumps(fe_breakdown)} "
+          f"{stamp}", flush=True)
+
+    # -- 8. results -----------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
@@ -264,6 +488,16 @@ def main():
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
          "launches": launches["greedy_nms"], "max_abs_err": float(n_diff),
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        # one batch's two blocks: ms and plain_ms are block 1 + block 2
+        {"name": "dense_block_eval", "route": "cuda",
+         "source": "groomed_nms_torch/csrc/dense_block.cu",
+         "replaces": "groomed_nms_tpu/ops/pallas_dense_block.py:140",
+         "launches": fe_launches["dense_block_eval"],
+         "max_abs_err": max(v["max_abs"] for v in k4.values()),
+         "max_rel_err": max(v["max_rel"] for v in k4.values()),
+         "mean_rel_err": max(v["mean_rel"] for v in k4.values()),
+         "ms": sum(v["ms"] for v in k4.values()),
+         "plain_ms": sum(v["plain_ms"] for v in k4.values())},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

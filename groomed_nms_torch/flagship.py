@@ -16,6 +16,7 @@ import torch
 from .anchors import generate_anchor_templates, locate_anchors
 from .config import load_config
 from .eval.tester import make_infer
+from .models.fast_eval import FastEvalRPN3D
 from .models.rpn_3d import RPN3D
 from .utils.weights import init_weights
 
@@ -39,19 +40,28 @@ def flagship_priors(num_anchors=NUM_ANCHORS, seed=0):
 
 
 def build_flagship(batch=8, height=512, width=1760, device="cuda",
-                   compute_dtype=torch.bfloat16, seed=0, src_hw=SRC_HW):
+                   compute_dtype=torch.bfloat16, seed=0, src_hw=SRC_HW,
+                   engine="rpn3d"):
     """Model + inputs of the flagship workload on ``device``.
 
     Returns ``(infer, args, model)``: ``infer(*args)`` runs one batch of
     ``batch`` uint8 frames of ``src_hw`` and returns ``(dets [B, 40, 17],
     valid [B, 40])``.  The weights come from ``torch.Generator`` seeded with
-    ``seed``, the frames from numpy ``default_rng(seed)``.
+    ``seed``, the frames from numpy ``default_rng(seed)``.  ``engine``
+    "rpn3d" serves the ``RPN3D`` module under autocast; "fast_eval" serves
+    the weight-folded ``FastEvalRPN3D`` built from it once, in
+    ``compute_dtype`` (f32 when None), with K4 running dense blocks 1-2.
     """
+    if engine not in ("rpn3d", "fast_eval"):
+        raise ValueError(f"engine must be 'rpn3d' or 'fast_eval', got "
+                         f"{engine!r}")
     device = torch.device(device)
     ecfg = load_config("groomed_nms")
     model = RPN3D(ecfg.rpn_config(NUM_ANCHORS))
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device, memory_format=torch.channels_last)
+    if engine == "fast_eval":
+        model = FastEvalRPN3D(model, compute_dtype or torch.float32)
 
     priors = flagship_priors()
     fh, fw = height // ecfg.feat_stride, width // ecfg.feat_stride

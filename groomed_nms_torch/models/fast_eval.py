@@ -1,0 +1,214 @@
+"""Weight-folded eval engine for ``RPN3D`` (``fast_eval``).
+
+Counterpart of ``groomed_nms_tpu/models/fast_eval.py``.  Built once from a
+port ``RPN3D`` (``FastEvalRPN3D(model, dtype)``), it holds:
+
+* every BatchNorm's running statistics folded into per-channel (mul, add),
+  in f32, then cast to the compute dtype (``fold_bn``);
+* the dense blocks named by ``kernel_blocks`` (default the two
+  high-resolution ones, 0 and 1) packed once for kernel K4
+  (``ops/kernels.py::dense_block_eval``, ``pack_dense_block``); the other
+  blocks run as a plain folded concat chain (cuDNN convs, ``torch.cat``);
+* the stem, transitions, ``norm5`` and the head convs in the compute dtype.
+
+``FastEvalBackbone.forward`` is JAX ``backbone_eval`` and
+``FastEvalRPN3D.forward`` is JAX ``rpn_eval``: the same function as
+``RPN3D.forward`` in eval mode up to rounding (the folded BatchNorm is
+applied in the compute dtype, as JAX does).  Its output is the port's
+``RPNOutputs``, so ``eval/tester.py::make_infer`` serves it unchanged.  The
+stem is the plain 7x7/s2 conv: JAX's TPU-only space-to-depth rewrite of it
+is the same function and is left out.
+
+This engine is not the ``fast_eval`` config key, which is the KITTI
+evaluator's verbose-grid switch.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..ops.kernels import dense_block_eval
+from .densenet import DenseLayer, DenseNetBackbone
+from .rpn_3d import RPN3D
+
+
+@torch.no_grad()
+def fold_bn(bn: nn.BatchNorm2d, dtype):
+    """Eval BatchNorm -> (mul, add): folded in f32, then cast to ``dtype``."""
+    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+    mul = bn.weight.float() * inv
+    add = bn.bias.float() - bn.running_mean.float() * mul
+    return mul.to(dtype), add.to(dtype)
+
+
+@torch.no_grad()
+def pack_dense_block(layers: list[DenseLayer], c0: int, dtype):
+    """One block's folded weights in K4's layout, zero past each layer's
+    input: (mul1 [L, cmax], add1 [L, cmax], w1 [L, bw, cmax], mul2 [L, bw],
+    add2 [L, bw], w2 [L, G, 9*bw] with k = (ty*3 + tx)*bw + channel)."""
+    n = len(layers)
+    bw, growth = layers[0].conv1.out_channels, layers[0].conv2.out_channels
+    cmax = c0 + n * growth
+    kw = dict(dtype=dtype, device=layers[0].conv1.weight.device)
+    mul1, add1 = torch.zeros(n, cmax, **kw), torch.zeros(n, cmax, **kw)
+    w1 = torch.zeros(n, bw, cmax, **kw)
+    mul2, add2 = torch.zeros(n, bw, **kw), torch.zeros(n, bw, **kw)
+    w2 = torch.zeros(n, growth, 9 * bw, **kw)
+    for l, layer in enumerate(layers):
+        cin = c0 + l * growth
+        mul1[l, :cin], add1[l, :cin] = fold_bn(layer.norm1, dtype)
+        w1[l, :, :cin] = layer.conv1.weight[:, :, 0, 0]
+        mul2[l], add2[l] = fold_bn(layer.norm2, dtype)
+        w2[l] = layer.conv2.weight.permute(0, 2, 3, 1).reshape(growth, -1)
+    return mul1, add1, w1, mul2, add2, w2
+
+
+def _frozen(weight, dtype):
+    """A conv kernel of the engine: a copy in ``dtype``, off the graph."""
+    return weight.detach().to(dtype, copy=True)
+
+
+class _FoldedNorm(nn.Module):
+    """Folded BatchNorm ``x * mul + add`` (one rounding), optional ReLU."""
+
+    def __init__(self, bn, dtype, relu=True):
+        super().__init__()
+        mul, add = fold_bn(bn, dtype)
+        self.register_buffer("mul", mul[:, None, None])
+        self.register_buffer("add", add[:, None, None])
+        self.relu = relu
+
+    def forward(self, x):
+        y = torch.addcmul(self.add, x, self.mul)
+        return y.relu_() if self.relu else y
+
+
+class KernelDenseBlock(nn.Module):
+    """A dense block run by K4 from weights packed once."""
+
+    def __init__(self, layers, c0, dilation, dtype):
+        super().__init__()
+        self.dilation = dilation
+        packed = pack_dense_block(layers, c0, dtype)
+        for name, t in zip(("mul1", "add1", "w1", "mul2", "add2", "w2"),
+                           packed):
+            self.register_buffer(name, t)
+
+    def forward(self, x):
+        return dense_block_eval(x, self.mul1, self.add1, self.w1, self.mul2,
+                                self.add2, self.w2, dilation=self.dilation)
+
+
+class _FoldedDenseLayer(nn.Module):
+    """A dense layer with folded norms, for the plain concat chain."""
+
+    def __init__(self, layer, dilation, dtype):
+        super().__init__()
+        self.dilation = dilation
+        self.norm1 = _FoldedNorm(layer.norm1, dtype)
+        self.norm2 = _FoldedNorm(layer.norm2, dtype)
+        self.register_buffer("w1", _frozen(layer.conv1.weight, dtype))
+        self.register_buffer("w2", _frozen(layer.conv2.weight, dtype))
+
+    def forward(self, x):
+        h = self.norm2(F.conv2d(self.norm1(x), self.w1))
+        return F.conv2d(h, self.w2, padding=self.dilation,
+                        dilation=self.dilation)
+
+
+class _ChainDenseBlock(nn.Module):
+    """A dense block as a plain folded concat chain (JAX
+    ``_dense_block_lax``): cheap at low resolution."""
+
+    def __init__(self, layers, dilation, dtype):
+        super().__init__()
+        self.layers = nn.ModuleList(_FoldedDenseLayer(l, dilation, dtype)
+                                    for l in layers)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = torch.cat([x, layer(x)], dim=1)
+        return x
+
+
+class _FoldedTransition(nn.Module):
+    """Folded BN -> ReLU -> optional 2x2 avg pool -> 1x1 conv."""
+
+    def __init__(self, trans, dtype):
+        super().__init__()
+        self.pool = trans.pool
+        self.norm = _FoldedNorm(trans.norm, dtype)
+        self.register_buffer("w", _frozen(trans.conv.weight, dtype))
+
+    def forward(self, x):
+        x = self.norm(x)
+        if self.pool:
+            x = F.avg_pool2d(x, 2, 2)
+        return F.conv2d(x, self.w)
+
+
+class FastEvalBackbone(nn.Module):
+    """The eval DenseNet trunk from folded weights (JAX ``backbone_eval``).
+
+    Built once from a ``DenseNetBackbone``; ``kernel_blocks`` are the block
+    indices that K4 runs.  NCHW in and out; keep the input channels_last on
+    the GPU so the activations pass to K4 and cuDNN without layout copies.
+    """
+
+    def __init__(self, backbone: DenseNetBackbone, dtype=torch.bfloat16,
+                 kernel_blocks=(0, 1)):
+        super().__init__()
+        cfg = backbone.config
+        self.register_buffer("conv0", _frozen(backbone.conv0.weight, dtype))
+        self.norm0 = _FoldedNorm(backbone.norm0, dtype)
+        stages = []
+        features = cfg.stem_features
+        for bi, (names, trans) in enumerate(backbone.blocks):
+            layers = [getattr(backbone, n) for n in names]
+            dil = cfg.block_dilations[bi]
+            stages.append(KernelDenseBlock(layers, features, dil, dtype)
+                          if bi in kernel_blocks else
+                          _ChainDenseBlock(layers, dil, dtype))
+            features += len(names) * cfg.growth_rate
+            if trans is not None:
+                stages.append(_FoldedTransition(getattr(backbone, trans),
+                                                dtype))
+                features //= 2
+        self.stages = nn.Sequential(*stages)
+        self.norm5 = _FoldedNorm(backbone.norm5, dtype, relu=False)
+
+    def stem(self, x):
+        """7x7/s2 conv -> folded norm0 -> ReLU -> 3x3/s2 max pool."""
+        x = F.conv2d(x.to(self.conv0.dtype), self.conv0, stride=2, padding=3)
+        return F.max_pool2d(self.norm0(x), 3, 2, padding=1)
+
+    def forward(self, x):
+        return self.norm5(self.stages(self.stem(x)))
+
+
+class FastEvalRPN3D(nn.Module):
+    """``RPN3D`` served from folded weights (JAX ``rpn_eval``).
+
+    Built once from a port ``RPN3D``: its trunk becomes a
+    ``FastEvalBackbone``, its head convs are copied in ``dtype``, and the
+    forward is ``RPN3D.forward`` itself, so the outputs are the same
+    ``RPNOutputs`` (``fused_raw`` in (h, w, a) row order, plus
+    ``accept_prob`` or ``accept_cls``).  Eval only: nothing here trains.
+    """
+
+    forward = RPN3D.forward
+
+    def __init__(self, model: RPN3D, dtype=torch.bfloat16,
+                 kernel_blocks=(0, 1)):
+        super().__init__()
+        self.config = model.config
+        self.backbone = FastEvalBackbone(model.backbone, dtype, kernel_blocks)
+        for name, module in model.named_children():
+            if name != "backbone":
+                self.add_module(name, copy.deepcopy(module).to(dtype)
+                                .requires_grad_(False))
+        self.eval()

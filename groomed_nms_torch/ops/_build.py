@@ -74,3 +74,13 @@ def greedy_nms_lib():
                                ctypes.c_float, ctypes.c_float, p]
     lib.greedy_nms.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def dense_block_lib():
+    """The dense-block (K4) library with its C entry's signature declared."""
+    lib = ctypes.CDLL(str(build("dense_block.cu")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dense_block_eval.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.dense_block_eval.restype = ctypes.c_int
+    return lib

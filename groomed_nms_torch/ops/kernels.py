@@ -1,4 +1,4 @@
-"""The two hand-written Hopper kernels of the inference path.
+"""The hand-written Hopper kernels of the inference paths.
 
 K1 ``fused_head_scores`` (Triton) replaces the TPU kernel
 ``groomed_nms_tpu/ops/pallas_kernels.py::fused_head_scores``: per anchor,
@@ -9,11 +9,17 @@ K2 ``greedy_nms`` (CUDA C++, ``csrc/greedy_nms.cu``) replaces
 ``groomed_nms_tpu/ops/pallas_kernels.py::greedy_nms_pallas``: batched exact
 greedy NMS over score-sorted rows.
 
+K4 ``dense_block_eval`` (CUDA C++, ``csrc/dense_block.cu``) replaces
+``groomed_nms_tpu/ops/pallas_dense_block.py::dense_block_eval``: one
+eval-mode DenseNet block with BatchNorm folded to (mul, add), for the
+``fast_eval`` engine (``models/fast_eval.py``).
+
 Each wrapper checks its inputs and dispatches on the tensors' device: on the
 CPU it runs the kernel's plain PyTorch version (``*_plain``, the oracle the
 CPU tests hold against the JAX kernels), on a CUDA device it launches the
 kernel, and on any other device it raises.  ``<wrapper>.launches`` counts the
-kernel launches (plain-version calls are not counted).  Triton is imported
+calls that launched the kernel (plain-version calls are not counted; one K4
+call is 2L CUDA launches, one per conv of each layer).  Triton is imported
 and the CUDA library built only when a kernel is first launched.
 """
 
@@ -22,6 +28,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -201,3 +208,121 @@ def greedy_nms(boxes, scores, *, nms_threshold=0.4, shift=1.0):
 
 
 greedy_nms.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: eval-mode dense block (CUDA C++)
+# ---------------------------------------------------------------------------
+
+_BLOCK_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
+                           dilation=1):
+    """K4's function in PyTorch: a concat chain with the kernel's rounding
+    points.  The products are taken in f32 from operands rounded to
+    ``x0.dtype`` (on a CUDA card, turn TF32 off before comparing), each
+    (mul, add) and ReLU in f32, and every layer's ``h`` and new channels
+    rounded to ``x0.dtype``.  Arguments as ``dense_block_eval``."""
+    dt = x0.dtype
+    layers, bw, _ = w1.shape
+    growth = w2.shape[1]
+    c0 = x0.shape[1]
+
+    def affine_relu(x, mul, add):
+        y = x.float() * mul.float()[:, None, None] + add.float()[:, None, None]
+        return y.clamp_min(0.0).to(dt)
+
+    stack = x0
+    for l in range(layers):
+        cin = c0 + l * growth
+        y = affine_relu(stack, mul1[l, :cin], add1[l, :cin])
+        k1 = w1[l, :, :cin, None, None].float()
+        h = affine_relu(F.conv2d(y.float(), k1), mul2[l], add2[l])
+        k2 = w2[l].float().reshape(growth, 3, 3, bw).permute(0, 3, 1, 2)
+        out = F.conv2d(h.float(), k2, padding=dilation, dilation=dilation)
+        stack = torch.cat([stack, out.to(dt)], dim=1)
+    return stack.contiguous(memory_format=torch.channels_last)
+
+
+def _check_dense_block(x0, mul1, add1, w1, mul2, add2, w2, dilation):
+    """K4's argument checks; returns (layers, c0, cmax, bw, growth)."""
+    if x0.dim() != 4 or x0.dtype not in _BLOCK_DTYPES:
+        raise ValueError(f"x0 must be [B, c0, H, W] of {_BLOCK_DTYPES}, got "
+                         f"{tuple(x0.shape)} {x0.dtype}")
+    if w1.dim() != 3 or w2.dim() != 3:
+        raise ValueError(f"w1 must be [L, bw, cmax] and w2 [L, G, 9*bw], got "
+                         f"{tuple(w1.shape)} and {tuple(w2.shape)}")
+    layers, bw, cmax = w1.shape
+    growth, c0 = w2.shape[1], x0.shape[1]
+    if layers < 1 or growth < 1 or cmax != c0 + layers * growth:
+        raise ValueError(f"cmax={cmax} is not c0 + L*G = {c0} + {layers}*"
+                         f"{growth}")
+    want = {"mul1": (layers, cmax), "add1": (layers, cmax),
+            "mul2": (layers, bw), "add2": (layers, bw),
+            "w2": (layers, growth, 9 * bw)}
+    for name, t in zip(("mul1", "add1", "w1", "mul2", "add2", "w2"),
+                       (mul1, add1, w1, mul2, add2, w2)):
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {list(want[name])}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != x0.dtype or t.device != x0.device or \
+                not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {x0.dtype} on "
+                             f"{x0.device}, got {t.dtype} on {t.device}")
+    if isinstance(dilation, bool) or not isinstance(dilation, int) or \
+            dilation < 1:
+        raise ValueError(f"dilation must be an int >= 1, got {dilation!r}")
+    return layers, c0, cmax, bw, growth
+
+
+def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
+    """One eval-mode DenseNet block: L x (BN1 -> ReLU -> 1x1 conv to bw ->
+    BN2 -> ReLU -> 3x3 conv dilated by ``dilation`` to G channels, appended).
+
+    ``x0`` [B, c0, H, W] (channels_last keeps its copy into the stack a
+    straight one) -> the block's whole stack [B, c0 + L*G, H, W] in
+    channels_last, input channels first.  The weights, packed by
+    ``models/fast_eval.py::pack_dense_block`` in ``x0``'s dtype, contiguous:
+    ``mul1``/``add1`` [L, cmax] folded norm1 (zero past each layer's input),
+    ``w1`` [L, bw, cmax] 1x1 kernels (K contiguous, zero past the input),
+    ``mul2``/``add2`` [L, bw] folded norm2, ``w2`` [L, G, 9*bw] 3x3 kernels
+    with k = (ty*3 + tx)*bw + channel.
+
+    On a CUDA tensor one call is 2L kernel launches (after a copy of ``x0``
+    into the stack) and counts once in ``dense_block_eval.launches``.  The
+    kernel takes bf16 only, c0 and G multiples of 8, G <= 64 and bw a
+    multiple of 32 up to 128; anything else raises ``ValueError``.
+    """
+    layers, c0, cmax, bw, growth = _check_dense_block(
+        x0, mul1, add1, w1, mul2, add2, w2, dilation)
+    if _device_kind(x0) == "cpu":
+        return dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2,
+                                      dilation=dilation)
+
+    if x0.dtype != torch.bfloat16:
+        raise ValueError(f"the dense-block kernel takes bf16, got {x0.dtype}")
+    if c0 % 8 or growth % 8 or growth > 64 or bw % 32 or bw > 128:
+        raise ValueError(f"the dense-block kernel takes c0 and G multiples of "
+                         f"8, G <= 64, bw in (32, 64, 96, 128); got c0={c0}, "
+                         f"G={growth}, bw={bw}")
+    b, _, h, w = x0.shape
+    lib = _build.dense_block_lib()
+    with torch.cuda.device(x0.device):
+        stack = torch.empty((b, cmax, h, w), dtype=x0.dtype, device=x0.device,
+                            memory_format=torch.channels_last)
+        stack[:, :c0].copy_(x0)
+        hbuf = torch.empty((b * h * w, bw), dtype=x0.dtype, device=x0.device)
+        err = lib.dense_block_eval(
+            stack.data_ptr(), hbuf.data_ptr(), mul1.data_ptr(),
+            add1.data_ptr(), w1.data_ptr(), mul2.data_ptr(), add2.data_ptr(),
+            w2.data_ptr(), b, h, w, c0, cmax, layers, bw, growth, dilation,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_block_eval kernel launch failed: CUDA "
+                           f"error {err}")
+    dense_block_eval.launches += 1
+    return stack
+
+
+dense_block_eval.launches = 0

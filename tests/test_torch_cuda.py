@@ -7,6 +7,8 @@ on a machine without JAX it runs on its own:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from groomed_nms_torch.anchors import locate_anchors
 from groomed_nms_torch.eval.tester import make_infer
 from groomed_nms_torch.inference import DetectConfig
 from groomed_nms_torch.models.densenet import tiny_densenet_config
+from groomed_nms_torch.models.fast_eval import FastEvalRPN3D
 from groomed_nms_torch.models.rpn_3d import RPN3D, RPNConfig
 from groomed_nms_torch.ops import kernels
 from groomed_nms_torch.utils.weights import init_weights
@@ -124,3 +127,105 @@ def test_slice_on_cuda_matches_cpu(cuda):
     assert torch.equal(valid_g, valid_c) and valid_c.any()
     torch.testing.assert_close(dets_g[valid_c], dets_c[valid_c], rtol=1e-4,
                                atol=1e-3)
+
+
+def _dense_block_case(seed, b, c0, h, w, layers, growth, bw, device):
+    """Seeded block input and packed weights in bf16: folded affines with
+    mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal kernels."""
+    rs = np.random.default_rng(seed)
+    cmax = c0 + layers * growth
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(
+            torch.bfloat16).to(device)
+
+    x0 = t(rs.normal(size=(b, c0, h, w))).contiguous(
+        memory_format=torch.channels_last)
+    return (x0, t(rs.uniform(0.5, 1.5, (layers, cmax))),
+            t(rs.normal(0, 0.2, (layers, cmax))),
+            t(rs.normal(size=(layers, bw, cmax)) / np.sqrt(cmax)),
+            t(rs.uniform(0.5, 1.5, (layers, bw))),
+            t(rs.normal(0, 0.2, (layers, bw))),
+            t(rs.normal(size=(layers, growth, 9 * bw)) / np.sqrt(9 * bw)))
+
+
+@pytest.mark.parametrize("b,c0,h,w,layers,growth,bw,dil", [
+    (2, 16, 13, 21, 2, 8, 32, 2),        # the tiny config: odd H/W, dil 2
+    (3, 24, 37, 29, 3, 16, 64, 1),       # ragged tiles, cin not a k step
+    (1, 40, 9, 11, 2, 24, 96, 3),        # G padded to 32, bw 96
+    (8, 128, 64, 220, 12, 32, 128, 1),   # the flagship's block 2
+])
+def test_dense_block_kernel_matches_plain(cuda, b, c0, h, w, layers, growth,
+                                          bw, dil):
+    """Max |err| within 1e-2 of max |ref| and mean |err| within 1e-3 of
+    mean |ref| over the new channels: the two sum in other orders, so a
+    bf16 rounding of h or of an output may land one step apart."""
+    args = _dense_block_case(h * w, b, c0, h, w, layers, growth, bw, cuda)
+    before = kernels.dense_block_eval.launches
+    got = kernels.dense_block_eval(*args, dilation=dil)
+    assert kernels.dense_block_eval.launches == before + 1
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = kernels.dense_block_eval_plain(*args, dilation=dil)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    cmax = c0 + layers * growth
+    assert got.shape == (b, cmax, h, w) and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got[:, :c0], args[0])
+    new, ref = got[:, c0:].float(), ref[:, c0:].float()
+    err = (new - ref).abs()
+    assert err.max() <= 1e-2 * ref.abs().max()
+    assert err.mean() <= 1e-3 * ref.abs().mean()
+
+
+def test_dense_block_kernel_refuses_what_it_does_not_take(cuda):
+    args = _dense_block_case(0, 1, 16, 8, 8, 2, 8, 32, cuda)
+    with pytest.raises(ValueError):           # f32 is never handed on
+        kernels.dense_block_eval(*(a.float() for a in args))
+    args = _dense_block_case(0, 1, 16, 8, 8, 2, 8, 48, cuda)
+    with pytest.raises(ValueError):           # bw not a multiple of 32
+        kernels.dense_block_eval(*args)
+    args = _dense_block_case(0, 1, 12, 8, 8, 2, 8, 32, cuda)
+    with pytest.raises(ValueError):           # c0 not a multiple of 8
+        kernels.dense_block_eval(*args)
+
+
+def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
+    """The tiny engine in bf16 at 2x64x128: K4 and cuDNN on the card vs the
+    plain path on the CPU, BatchNorm statistics perturbed from a seed.
+    bf16 sums in other orders: max |err| within 5% of max |ref|, mean
+    |err| within 2% of mean |ref|, acceptance within 0.02."""
+    cfg = RPNConfig(num_anchors=6, prop_features=64,
+                    predict_acceptance_prob=True,
+                    backbone=tiny_densenet_config())
+    model = init_weights(RPN3D(cfg), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.2)
+                m.running_mean.copy_(
+                    torch.randn(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(
+                    torch.rand(m.running_var.shape, generator=g) + 0.5)
+    engine = FastEvalRPN3D(model.eval(), torch.bfloat16)
+    x = torch.randn((2, 3, 64, 128), generator=g).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        ref = engine(x)
+        before = kernels.dense_block_eval.launches
+        gpu = copy.deepcopy(engine).to(cuda, memory_format=torch.channels_last)
+        got = gpu(x.to(cuda))
+        torch.cuda.synchronize()
+    assert kernels.dense_block_eval.launches == before + 2
+    assert got.fused_raw.shape == ref.fused_raw.shape
+    f_got, f_ref = got.fused_raw.float().cpu(), ref.fused_raw.float()
+    err = (f_got - f_ref).abs()
+    assert err.max() <= 0.05 * f_ref.abs().max()
+    assert err.mean() <= 0.02 * f_ref.abs().mean()
+    torch.testing.assert_close(got.accept_prob.cpu(), ref.accept_prob,
+                               rtol=0, atol=0.02)

@@ -1,0 +1,260 @@
+"""The port's weight-folded eval engine and K4's plain version vs JAX.
+
+One flax variables tree (``torch_port_common.tiny_models``, BatchNorm
+statistics perturbed) drives the JAX ``fast_eval`` functions, with the
+Pallas dense block in interpret mode, and the port's ``FastEvalRPN3D``
+built from the port's ``RPN3D``.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from groomed_nms_tpu import inference as jax_inf
+from groomed_nms_tpu.models.fast_eval import (_fold_bn, _prep_dense_block,
+                                              backbone_eval, rpn_eval)
+from groomed_nms_tpu.ops.pallas_dense_block import \
+    dense_block_eval as jax_dense_block
+
+from groomed_nms_torch import inference
+from groomed_nms_torch.anchors import locate_anchors
+from groomed_nms_torch.flagship import build_flagship
+from groomed_nms_torch.models.fast_eval import (FastEvalBackbone,
+                                                FastEvalRPN3D, fold_bn,
+                                                pack_dense_block)
+from groomed_nms_torch.ops import kernels
+from torch_port_common import tiny_models, to_np
+
+
+# one JAX init per variant for the whole file; nothing below mutates them
+_models = functools.cache(tiny_models)
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def _block_weights(block):
+    """JAX's and the port's packing of one block of the same flax tree."""
+    jmodel, variables, tmodel = _models()
+    bcfg = jmodel.config.backbone
+    layers = [getattr(tmodel.backbone, n)
+              for n in tmodel.backbone.blocks[block][0]]
+    c0, g = layers[0].norm1.num_features, bcfg.growth_rate
+    jw = _prep_dense_block(variables["params"]["backbone"],
+                           variables["batch_stats"]["backbone"],
+                           f"denseblock{block + 1}", len(layers), c0, bcfg)
+    tw = pack_dense_block(layers, c0, torch.float32)
+    return jw, tw, c0, g, bcfg.block_dilations[block]
+
+
+@pytest.mark.parametrize("block", [0, 3])
+def test_fold_and_pack_match_jax(block):
+    jw, tw, c0, g, _ = _block_weights(block)
+    jm1, ja1, jw1, jm2, ja2, jw2 = (np.asarray(a) for a in jw)
+    tm1, ta1, tw1, tm2, ta2, tw2 = (a.numpy() for a in tw)
+    for j, t in ((jm1, tm1), (ja1, ta1), (jm2, tm2), (ja2, ta2)):
+        np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-7)
+    # JAX w1 [L, cmax, bw] -> the port's K-contiguous [L, bw, cmax]
+    np.testing.assert_array_equal(tw1, jw1.transpose(0, 2, 1))
+    # JAX w2 [L, bw, (tap, G)] -> the port's [L, G, (tap, bw)]
+    L, bw = jw2.shape[:2]
+    np.testing.assert_array_equal(
+        tw2, jw2.reshape(L, bw, 9, g).transpose(0, 3, 2, 1).reshape(
+            L, g, 9 * bw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_bn_matches_jax(dtype):
+    jmodel, variables, tmodel = _models()
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = _fold_bn(variables["params"]["backbone"]["norm0"],
+                   variables["batch_stats"]["backbone"]["norm0"], jdt)
+    got = fold_bn(tmodel.backbone.norm0, dtype)
+    for j, t in zip(ref, got):
+        assert t.dtype == dtype
+        np.testing.assert_allclose(to_np(t), np.asarray(j, np.float32),
+                                   rtol=1e-6 if dtype == torch.float32
+                                   else 2 ** -8)
+
+
+@pytest.mark.parametrize("block,h,w", [
+    (0, 32, 40),          # H a multiple of the 32-row chunk
+    (1, 24, 17),          # H that no chunk of 32 divides, odd W
+    (3, 13, 21),          # block 4: dilation 2, odd H and W
+])
+def test_dense_block_plain_matches_pallas(block, h, w):
+    jw, tw, c0, g, dil = _block_weights(block)
+    x0 = np.random.default_rng(block).normal(size=(2, h, w, c0)).astype(
+        np.float32)
+    ref = np.asarray(jax_dense_block(jnp.asarray(x0), *jw, growth=g,
+                                     dilation=dil, interpret=True))
+    got = kernels.dense_block_eval(_nchw(x0), *tw, dilation=dil)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=2e-4, rtol=2e-4)
+
+
+def test_backbone_eval_matches_jax_f32():
+    jmodel, variables, tmodel = _models()
+    x = np.random.default_rng(3).normal(size=(2, 64, 96, 3)).astype(
+        np.float32)
+    ref = np.asarray(backbone_eval(variables["params"]["backbone"],
+                                   variables["batch_stats"]["backbone"],
+                                   jmodel.config.backbone, jnp.asarray(x),
+                                   interpret=True))
+    with torch.no_grad():
+        got = FastEvalBackbone(tmodel.backbone, torch.float32)(_nchw(x))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=2e-4, rtol=2e-4)
+
+
+def test_backbone_eval_matches_jax_bf16():
+    """bf16 accumulation orders differ: the tolerance of
+    ``tests/test_fast_eval.py``'s bf16 case."""
+    jmodel, variables, tmodel = _models(bf16=True)
+    x = np.random.default_rng(4).normal(size=(1, 32, 64, 3)).astype(
+        np.float32)
+    ref = np.asarray(backbone_eval(variables["params"]["backbone"],
+                                   variables["batch_stats"]["backbone"],
+                                   jmodel.config.backbone, jnp.asarray(x),
+                                   interpret=True), np.float32)
+    with torch.no_grad():
+        got = FastEvalBackbone(tmodel.backbone, torch.bfloat16)(_nchw(x))
+    assert got.dtype == torch.bfloat16
+    got = to_np(got.permute(0, 2, 3, 1))
+    scale = np.abs(ref).mean() + 1e-3
+    assert np.abs(got - ref).mean() / scale < 0.02
+    np.testing.assert_allclose(got, ref, atol=0.15 * scale + 0.05)
+
+
+def _detect_args(rs, a, b, feat_hw):
+    priors = np.abs(rs.normal(size=(a, 11))).astype(np.float32) + 1.0
+    priors[:, 2:4] += priors[:, 0:2] + 16.0
+    rois = locate_anchors(priors, feat_hw, 16)
+    rois_3d = priors[rois[:, 4].astype(np.int64), 4:]
+    p2 = np.tile(np.eye(4, dtype=np.float32)[None], (b, 1, 1))
+    p2[:, 0, 0] = p2[:, 1, 1] = 700.0
+    return (rois, rois_3d, p2, np.linalg.inv(p2).astype(np.float32),
+            np.ones((b,), np.float32), np.zeros(13, np.float32),
+            np.ones(13, np.float32))
+
+
+@pytest.mark.parametrize("variant", [
+    dict(predict_acceptance_prob=True),
+    dict(predict_uncertainty=True),
+])
+def test_rpn_eval_detects_like_jax(variant):
+    """rpn_eval -> im_detect_3d in both packages, f32."""
+    jmodel, variables, tmodel = _models(**variant)
+    rs = np.random.default_rng(5)
+    images = rs.normal(size=(2, 64, 96, 3)).astype(np.float32)
+    ref = rpn_eval(variables, jnp.asarray(images), jmodel.config,
+                   interpret=True)
+    with torch.no_grad():
+        got = FastEvalRPN3D(tmodel, torch.float32)(_nchw(images))
+    np.testing.assert_allclose(to_np(got.fused_raw), np.asarray(ref.fused_raw),
+                               atol=5e-4)
+    for name in ("accept_prob", "uncertainty"):
+        j, t = getattr(ref, name), getattr(got, name)
+        assert (j is None) == (t is None), name
+        if j is not None:
+            np.testing.assert_allclose(to_np(t), np.asarray(j), atol=5e-4)
+
+    args = _detect_args(rs, 6, 2, (4, 6))
+    jd, jv = jax_inf.im_detect_3d(
+        jax_inf.rpn_outputs_dict(ref), *(jnp.asarray(x) for x in args),
+        jax_inf.DetectConfig(nms_topN_pre=64, nms_topN_post=8))
+    td, tv = inference.im_detect_3d(
+        inference.rpn_outputs_dict(got), *(torch.from_numpy(x) for x in args),
+        inference.DetectConfig(nms_topN_pre=64, nms_topN_post=8))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert tv.any()
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,kernel_blocks", [
+    (torch.float32, (0, 1)), (torch.float32, ()),
+    (torch.float32, (0, 1, 2, 3)), (torch.bfloat16, (0, 1)),
+])
+def test_engine_matches_rpn3d(dtype, kernel_blocks):
+    """The engine against the port's own RPN3D on the same weights: f32 to
+    1e-4; bf16 (folded BatchNorm applied in bf16) to 5% of the scale."""
+    _, _, tmodel = _models(predict_acceptance_prob=True)
+    x = _nchw(np.random.default_rng(6).normal(size=(2, 64, 128, 3)).astype(
+        np.float32))
+    engine = FastEvalRPN3D(tmodel, dtype, kernel_blocks)
+    with torch.no_grad():
+        ref, got = tmodel(x), engine(x)
+    assert got.fused_raw.dtype == dtype and got.feat_hw == ref.feat_hw
+    tol = 1e-4 if dtype == torch.float32 else \
+        0.05 * ref.fused_raw.abs().max().item()
+    np.testing.assert_allclose(to_np(got.fused_raw), to_np(ref.fused_raw),
+                               atol=tol)
+    np.testing.assert_allclose(to_np(got.accept_prob), to_np(ref.accept_prob),
+                               atol=1e-5 if dtype == torch.float32 else 0.05)
+
+
+def test_flagship_engines_agree_on_cpu():
+    """``build_flagship(engine=...)``: DenseNet-121 at full width, 64x128,
+    f32, both engines from the same seed give the same detections."""
+    results = []
+    for engine in ("rpn3d", "fast_eval"):
+        infer, args, model = build_flagship(
+            batch=1, height=64, width=128, device="cpu", compute_dtype=None,
+            src_hw=(48, 96), engine=engine)
+        results.append(infer(*args))
+    assert isinstance(model, FastEvalRPN3D)
+    (d1, v1), (d2, v2) = results
+    assert torch.equal(v1, v2) and v1.any()
+    torch.testing.assert_close(d2[v2], d1[v1], rtol=1e-4, atol=1e-3)
+    with pytest.raises(ValueError):
+        build_flagship(device="cpu", engine="no_such_engine")
+
+
+def _block_args(c0=16, layers=2, growth=8, bw=32, h=7, w=9):
+    g = torch.Generator().manual_seed(0)
+    cmax = c0 + layers * growth
+    return [torch.randn(s, generator=g) for s in (
+        (2, c0, h, w), (layers, cmax), (layers, cmax), (layers, bw, cmax),
+        (layers, bw), (layers, bw), (layers, growth, 9 * bw))]
+
+
+def _bad(i, fn):
+    def make():
+        args = _block_args()
+        args[i] = fn(args[i])
+        return args
+    return make
+
+
+@pytest.mark.parametrize("make,kw", [
+    (_bad(0, lambda t: t[0]), {}),                       # x0 not 4-D
+    (_bad(0, lambda t: t.half()), {}),                   # unsupported dtype
+    (_bad(0, lambda t: t[:, :8]), {}),                   # cmax != c0 + L*G
+    (_bad(1, lambda t: t[:, :-1].contiguous()), {}),     # mul1 shape
+    (_bad(3, lambda t: t.double()), {}),                 # w1 dtype
+    (_bad(3, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)), {}),
+    (_bad(6, lambda t: t[..., :-1].contiguous()), {}),   # w2 shape
+    (_block_args, {"dilation": 0}),
+    (_block_args, {"dilation": 1.5}),
+    (lambda: [t.to("meta") for t in _block_args()], {}),  # not CPU, not CUDA
+])
+def test_dense_block_wrapper_refuses_bad_input(make, kw):
+    with pytest.raises(ValueError):
+        kernels.dense_block_eval(*make(), **kw)
+
+
+def test_dense_block_wrapper_runs_plain_on_cpu_uncounted():
+    args = _block_args()
+    before = kernels.dense_block_eval.launches
+    got = kernels.dense_block_eval(*args, dilation=2)
+    assert kernels.dense_block_eval.launches == before
+    torch.testing.assert_close(
+        got, kernels.dense_block_eval_plain(*args, dilation=2), rtol=0,
+        atol=0)
+    assert got.shape == (2, 32, 7, 9)
+    torch.testing.assert_close(got[:, :16], args[0], rtol=0, atol=0)
