@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the greedy-NMS and dense-block libraries
-                (csrc/greedy_nms.cu, csrc/dense_block.cu), both at once, into
+  2. build   -- nvcc builds the greedy-NMS, dense-block and IoU/prune
+                libraries (csrc/greedy_nms.cu, csrc/dense_block.cu,
+                csrc/iou_prune.cu), all at once, into
                 build/groomed_nms_torch/ and prints their -Xptxas -v logs;
                 Triton compiles the head-score kernel on its first launch;
   3. K1      -- fused_head_scores against its plain version at the main-path
@@ -29,7 +30,22 @@ Phases, in order; any failure raises and exits non-zero:
                 size from one RPN3D with perturbed BatchNorm statistics;
                 (c) the flagship through make_infer with engine="fast_eval",
                 timed: K4 twice per batch, K1 and K2 once; trunk breakdown;
-  8. the kernels JSON line, then the last line:
+  8. K3     -- fused_iou_prune against its plain version at the training
+                and test-time shape [8, 512, 4] (clustered boxes, padding
+                rows) for the three pruning methods, and at the analysis
+                shape [1, 1000, 4]; kernel and plain times, Gpairs/s;
+  9. operator -- GrooMeD-NMS (sort, K3, grouping, rescoring) on the card
+                against the CPU path at [8, 512] and [1, 1000]; ms, Mboxes/s;
+ 10. groomed test -- the flagship through make_infer with GrooMeD-NMS at
+                test time: K3 and K1 once per batch, K2 never; timed;
+ 11. train  -- (a) one step of the flagship train workload with the tiny
+                backbone at 2x64x128 f32 on the card against the CPU path;
+                (b) build_flagship_train
+                at full size (batch 8, 512x1760, bf16 autocast): 3 warm-up
+                and 10 timed steps, K3 once per step, finite loss and
+                gradients, parameters and running statistics moved; ms per
+                step, img/s, a stage split and the peak device memory;
+ 12. the kernels JSON line, then the last line:
      {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
@@ -49,14 +65,17 @@ import torch
 
 from groomed_nms_torch.config import load_config
 from groomed_nms_torch.data.augment import preprocess_images
-from groomed_nms_torch.flagship import NUM_ANCHORS, build_flagship
+from groomed_nms_torch.flagship import (NUM_ANCHORS, build_flagship,
+                                        build_flagship_train)
 from groomed_nms_torch.inference import (decode_detections, im_detect_3d,
                                          nms_and_topk, rpn_outputs_dict,
                                          select_top_pre_nms,
                                          write_kitti_detections)
+from groomed_nms_torch.models.densenet import tiny_densenet_config
 from groomed_nms_torch.models.fast_eval import FastEvalRPN3D, KernelDenseBlock
 from groomed_nms_torch.models.rpn_3d import RPN3D
 from groomed_nms_torch.ops import _build, kernels
+from groomed_nms_torch.ops.groomed_nms import groomed_nms_boxes
 from groomed_nms_torch.ops.iou import pairwise_iou
 from groomed_nms_torch.utils.weights import init_weights
 
@@ -76,6 +95,20 @@ K4_MAX_REL, K4_MEAN_REL = 1e-2, 1e-3
 # folded BatchNorm applied in bf16, where autocast applies it in f32), and
 # the acceptance probability's max |err| against the CPU path
 FE_MAX_REL, FE_MEAN_REL, FE_ACCEPT_ATOL = 0.05, 0.02, 0.02
+# K3: IoU and the linear prune bit-identical (the same f32 ops in the same
+# order, no FMA on either side); the sigmoid and exp of the other two
+# methods within 1e-6; the operator's rescored values within 1e-6 of the
+# CPU path with identical leaders and keep masks
+K3_ATOL, OPERATOR_ATOL = 1e-6, 1e-6
+K3_SHAPES = {"train": (8, 512), "analysis": (1, 1000)}
+# one train step of the tiny model at 2x64x128 f32 on the card vs the CPU
+# path: stats at rtol 1e-3 (atol 1e-5), parameters within 1e-4 of each
+# tensor's max (convolutions and their gradients summed in other orders).
+# Not DenseNet-121: at random init its train-mode step turns a 1e-7
+# relative change of its weights into a ~0.4% change of the whole update
+# (measured on the CPU), so two backends cannot agree on it to 1e-4
+
+TRAIN_RTOL, TRAIN_ATOL, TRAIN_PARAM_REL = 1e-3, 1e-5, 1e-4
 
 
 def card_line():
@@ -157,6 +190,23 @@ def perturbed_rpn3d(seed):
     return model.eval()
 
 
+def perturb_(model, seed):
+    """Every BatchNorm weight ~ U(0.5, 1.5), running mean ~ N(0, 0.2) and
+    variance ~ U(0.5, 1.5), every bias ~ N(0, 0.2), drawn on the CPU from a
+    seeded generator: no parameter starts at 0, so a parameter's error
+    after a step is measured against a scale that is not the step itself."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.running_mean.copy_(torch.randn(n, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+            if getattr(m, "bias", None) is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.2)
+
+
 def nms_case(rs, b, n):
     """Score-sorted boxes with clusters, padding rows, equal scores and
     same-size pairs whose IoU (W-d)/(W+d) is at or next to 0.4 (d = 3W/7)."""
@@ -179,6 +229,226 @@ def nms_case(rs, b, n):
     return boxes, scores
 
 
+def wall_ms(fn, reps):
+    """Mean host time of ``fn`` over ``reps`` runs, synchronised: for
+    host-bound work (many small launches) that a user waits for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def analysis_boxes(rs, n):
+    """The box recipe of analysis/bench_groomed_nms.py: [1, n, 4] f32 and
+    [1, n] scores."""
+    x1, y1 = rs.uniform(0, 1600, n), rs.uniform(0, 480, n)
+    w, h = rs.uniform(30, 300, n), rs.uniform(30, 200, n)
+    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1)[None].astype(np.float32)
+    return boxes, rs.uniform(0, 1, (1, n)).astype(np.float32)
+
+
+def k3_case(name, b, n):
+    """K3's inputs at a named shape: score-sorted clustered boxes with
+    padding rows (scores 0) for "train", the analysis recipe otherwise."""
+    if name == "train":
+        return nms_case(np.random.default_rng(20), b, n)
+    boxes, scores = analysis_boxes(np.random.default_rng(0), n)
+    return boxes, -np.sort(-scores, axis=1)
+
+
+def k3_phase(dev, flush, stamp):
+    """K3 against its plain version at each of K3_SHAPES, three methods;
+    returns {shape name: {ms, plain_ms, max_abs}}."""
+    k3 = {}
+    for name, (b, n) in K3_SHAPES.items():
+        boxes_np, scores_np = k3_case(name, b, n)
+        boxes = torch.from_numpy(boxes_np).to(dev)
+        valid = torch.from_numpy(scores_np > 0).to(dev)
+        errs = {}
+        for method in kernels.PRUNING_METHODS:
+            kw = dict(nms_threshold=0.4, temperature=0.1,
+                      pruning_method=method)
+            iou, prune = kernels.fused_iou_prune(boxes, valid, **kw)
+            ref_iou, ref_prune = kernels.fused_iou_prune_plain(boxes, valid,
+                                                               **kw)
+            errs[method] = (prune - ref_prune).abs().max().item()
+            assert torch.equal(iou, ref_iou), \
+                f"K3 IoU differs from its plain version ({name})"
+            assert errs[method] <= (0.0 if method == "linear" else K3_ATOL), \
+                f"K3 {method} prune differs by {errs[method]} ({name})"
+        ms = time_ms(lambda: kernels.fused_iou_prune(boxes, valid), 50, flush)
+        plain_ms = time_ms(lambda: kernels.fused_iou_prune_plain(
+            boxes, valid), 20, flush)
+        k3[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max(errs.values()))
+        print(f"K3 fused_iou_prune {name} [{b}, {n}, 4] "
+              f"({int(valid.sum())} valid rows): IoU identical, prune "
+              f"max|err| {json.dumps(errs)} (linear 0, else atol "
+              f"{K3_ATOL:g}); kernel {ms:.4f} ms ({b * n * n / ms / 1e6:.2f} "
+              f"Gpairs/s), plain {plain_ms:.4f} ms "
+              f"({b * n * n / plain_ms / 1e6:.2f} Gpairs/s) {stamp}",
+              flush=True)
+    return k3
+
+
+def operator_phase(dev, stamp):
+    """GrooMeD-NMS of unsorted rows (sort, K3, grouping, rescoring) on the
+    card against the CPU path at each of K3_SHAPES, timed on the host."""
+    for name, (b, n) in K3_SHAPES.items():
+        boxes_np, scores_np = k3_case(name, b, n)
+        # unsorted rows: the operator sorts them (ties broken by index)
+        perm = np.random.default_rng(21).permutation(n)
+        boxes_c = torch.from_numpy(boxes_np[:, perm])
+        scores_c = torch.from_numpy(scores_np[:, perm])
+        valid_c = scores_c > 0
+        ref = groomed_nms_boxes(scores_c, boxes_c, valid_c)
+        args_g = [t.to(dev) for t in (scores_c, boxes_c, valid_c)]
+        got = groomed_nms_boxes(*args_g)
+        same_leader = torch.equal(got.leader.cpu(), ref.leader)
+        same_keep = torch.equal(got.keep.cpu(), ref.keep)
+        err = (got.rescored.cpu() - ref.rescored).abs().max().item()
+        ms = wall_ms(lambda: groomed_nms_boxes(*args_g), 20)
+        print(f"operator groomed_nms_boxes {name} [{b}, {n}]: leaders "
+              f"identical {same_leader}, keep identical {same_keep} "
+              f"({int(ref.keep.sum())} kept, {int((ref.leader >= 0).sum())} "
+              f"grouped), rescored max|err| {err:.3e} (atol "
+              f"{OPERATOR_ATOL:g}); {ms:.3f} ms, {b * n / ms / 1e3:.3f} "
+              f"Mboxes/s {stamp}", flush=True)
+        assert same_leader and same_keep and err <= OPERATOR_ATOL, \
+            f"the operator on the card disagrees with the CPU path ({name})"
+
+
+def groomed_test_phase(stamp):
+    """The flagship served with GrooMeD-NMS at test time, timed."""
+    infer, args, _ = build_flagship(device="cuda", differentiable_nms=True)
+    batch = args[0].shape[0]
+    for _ in range(WARMUP):
+        infer(*args)
+    torch.cuda.synchronize()
+    kernels.fused_head_scores.launches = 0
+    kernels.greedy_nms.launches = 0
+    kernels.fused_iou_prune.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        dets, valid = infer(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_head_scores": kernels.fused_head_scores.launches,
+                "greedy_nms": kernels.greedy_nms.launches,
+                "fused_iou_prune": kernels.fused_iou_prune.launches}
+    assert launches == {"fused_head_scores": TIMED, "greedy_nms": 0,
+                        "fused_iou_prune": TIMED}, \
+        f"expected K1 and K3 once per batch and no K2, got {launches}"
+    dets, valid = dets.cpu(), valid.cpu()
+    assert dets.shape == (batch, 40, 17) and torch.isfinite(dets).all(), \
+        "non-finite GrooMeD detections"
+    print(f"groomed test: {TIMED} batches of {batch} at 512x1760 bf16 with "
+          f"GrooMeD-NMS in {wall * 1e3:.1f} ms: {batch * TIMED / wall:.2f} "
+          f"img/s, {wall * 1e3 / TIMED:.2f} ms/batch; launches {launches}; "
+          f"{int(valid.sum())} valid rows {stamp}", flush=True)
+
+
+def train_phase(stamp):
+    """(a) one f32 step of the tiny model at 2x64x128 on the card against
+    the CPU path; (b) the
+    flagship train step at full size, timed, with a stage split and the
+    peak memory.  Returns K3's launches in the timed steps."""
+    torch.backends.cudnn.allow_tf32 = False
+    small = dict(batch=2, height=64, width=128, src_hw=(48, 96),
+                 compute_dtype=None, backbone=tiny_densenet_config())
+    results = []
+    for device in ("cpu", "cuda"):
+        step, state, batch = build_flagship_train(device=device, **small)
+        perturb_(state.model, seed=5)
+        stats = step(state, batch)
+        results.append(({k: float(v) for k, v in stats.items()},
+                        {k: v.cpu() for k, v in
+                         state.model.state_dict().items()}))
+    torch.backends.cudnn.allow_tf32 = True
+    (s_c, p_c), (s_g, p_g) = results
+    stat_err = max(abs(s_g[k] - s_c[k]) / max(abs(s_c[k]), TRAIN_ATOL)
+                   for k in s_c)
+    param_err = max(((p_g[k] - v).abs().max() / v.abs().max()).item()
+                    for k, v in p_c.items()
+                    if v.is_floating_point() and v.abs().max() > 0)
+    print(f"train (a): one step of the tiny model at 2x64x128 f32, card vs "
+          f"CPU path: loss "
+          f"{s_g['total']:.6f} vs {s_c['total']:.6f}, max stat rel err "
+          f"{stat_err:.3e} (rtol {TRAIN_RTOL:g}), max param err / max "
+          f"{param_err:.3e} (tol {TRAIN_PARAM_REL:g}); {s_c['fg_num']:.0f} "
+          f"fg", flush=True)
+    assert s_c["fg_num"] > 0
+    for k in s_c:
+        assert abs(s_g[k] - s_c[k]) <= TRAIN_ATOL + TRAIN_RTOL * abs(s_c[k]), \
+            f"train step stat {k} differs on the card: {s_g[k]} vs {s_c[k]}"
+    assert param_err <= TRAIN_PARAM_REL, "train step parameters differ"
+
+    events = None                  # the stage hook records only into a list
+
+    def on_stage(stage):
+        if events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+
+    step, state, batch = build_flagship_train(device="cuda",
+                                              on_stage=on_stage)
+    n_img = batch["images_u8"].shape[0]
+    for _ in range(WARMUP):
+        step(state, batch)
+    torch.cuda.synchronize()
+    before = {k: v.clone() for k, v in state.model.state_dict().items()
+              if v.is_floating_point()}
+    kernels.fused_iou_prune.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        losses.append(step(state, batch)["total"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = kernels.fused_iou_prune.launches
+    losses = torch.stack(losses).cpu()
+    grads_ok = all(torch.isfinite(p.grad).all().item()
+                   for p in state.model.parameters() if p.grad is not None)
+    after = state.model.state_dict()
+    moved = {kind: all(not torch.equal(before[k], after[k])
+                       for k in before if k.endswith(kind))
+             for kind in ("weight", "running_mean", "running_var")}
+    print(f"train (b): {TIMED} steps of batch {n_img} at 512x1760 bf16 in "
+          f"{wall * 1e3:.1f} ms: {wall * 1e3 / TIMED:.2f} ms/step, "
+          f"{n_img * TIMED / wall:.2f} img/s; K3 launches {launches}; loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; grads finite {grads_ok}; "
+          f"moved {moved}; peak memory {peak_gb:.2f} GB {stamp}", flush=True)
+    assert launches == TIMED, "expected one K3 launch per train step"
+    assert torch.isfinite(losses).all() and grads_ok, "non-finite training"
+    assert all(moved.values()), "a parameter or statistic did not move"
+
+    # the stage split: device time between the step's hooks, from an event
+    # recorded just before the step (preprocess counts with the forward)
+    splits = []
+    for _ in range(5):
+        events = []
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, batch)
+        torch.cuda.synchronize()
+        prev, split = start, {}
+        for stage, ev in events:
+            split[stage] = prev.elapsed_time(ev)
+            prev = ev
+        splits.append(split)
+    events = None
+    split = {k: round(float(np.median([sp[k] for sp in splits])), 4)
+             for k in splits[0]}
+    print(f"train (b) split ms/step (median of 5, CUDA events): "
+          f"{json.dumps(split)} {stamp}", flush=True)
+    return launches
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -193,11 +463,12 @@ def main():
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("greedy_nms.cu", "dense_block.cu")
+    sources = ("greedy_nms.cu", "dense_block.cu", "iou_prune.cu")
     with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source
         libs = list(pool.map(_build.build, sources))
     _build.greedy_nms_lib()
     _build.dense_block_lib()
+    _build.iou_prune_lib()
     print(f"build: nvcc {' + '.join(sources)} -> "
           f"{', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -476,7 +747,17 @@ def main():
     print(f"fast_eval breakdown ms/batch-8: {json.dumps(fe_breakdown)} "
           f"{stamp}", flush=True)
 
-    # -- 8. results -----------------------------------------------------------
+
+    # -- 8-11. K3, the operator, GrooMeD-NMS at test time, training ------
+    del model, engine, infer, infer_f, args_f, images, outs, bb, x1, x2, \
+        k4_inputs, stages, fe_stages
+    torch.cuda.empty_cache()
+    k3 = k3_phase(dev, flush, stamp)
+    operator_phase(dev, stamp)
+    groomed_test_phase(stamp)
+    train_launches = train_phase(stamp)
+
+    # -- 12. results ----------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
@@ -498,6 +779,13 @@ def main():
          "mean_rel_err": max(v["mean_rel"] for v in k4.values()),
          "ms": sum(v["ms"] for v in k4.values()),
          "plain_ms": sum(v["plain_ms"] for v in k4.values())},
+        # launches: the full-size train loop's; ms at its shape [8, 512, 4]
+        {"name": "fused_iou_prune", "route": "cuda",
+         "source": "groomed_nms_torch/csrc/iou_prune.cu",
+         "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:76",
+         "launches": train_launches,
+         "max_abs_err": max(v["max_abs"] for v in k3.values()),
+         "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,10 @@ The configs are the JSON files under ``groomed_nms_torch/configs/``, one per
 experiment name of the repository's ``configs/`` package (ablations
 included), written by ``scripts/dump_torch_configs.py``.  ``ExperimentConfig``
 has exactly the fields of those files, so every file loads 1:1; the typed
-sub-configs for the model and the detection layers are derived from it.
-Fields the PyTorch package does not read yet (solver, loss, data, the
-JAX runtime's padding and remat knobs) are kept so that one file describes
-the whole experiment.
+sub-configs for the model, the loss and the detection layers are derived
+from it.  Fields the PyTorch package does not read yet (data, the JAX
+runtime's remat knobs) are kept so that one file describes the whole
+experiment.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 from .inference import DetectConfig
+from .losses.rpn_3d import LossConfig
 from .models.densenet import DenseNetConfig, tiny_densenet_config
 from .models.rpn_3d import RPNConfig
 
@@ -182,6 +183,13 @@ class ExperimentConfig:
             backbone=self.backbone_config(),
         )
 
+    def loss_config(self) -> LossConfig:
+        """Every ``LossConfig`` field is the experiment field of its name."""
+        values = {f.name: getattr(self, f.name)
+                  for f in dataclasses.fields(LossConfig)}
+        values["bins_boundary"] = tuple(values["bins_boundary"])
+        return LossConfig(**values)
+
     def detect_config(self) -> DetectConfig:
         return DetectConfig(
             num_classes=self.num_classes,
@@ -192,6 +200,13 @@ class ExperimentConfig:
             clip_boxes=self.clip_boxes,
             use_un_for_score=self.use_un_for_score,
             use_differentiable_nms=self.use_differentiable_nms_at_test,
+            diff_nms_pruning_method=self.diff_nms_pruning_method,
+            diff_nms_temperature=self.diff_nms_temperature,
+            diff_nms_valid_box_prob_threshold=self.diff_nms_valid_box_prob_threshold,
+            diff_nms_group_boxes=self.diff_nms_group_boxes,
+            diff_nms_mask_group_boxes=self.diff_nms_mask_group_boxes,
+            diff_nms_group_size=self.diff_nms_group_size,
+            overlap_in_nms=self.overlap_in_nms,
             use_acceptance_prob_for_nms=self.use_acceptance_prob_for_nms,
             decomp_alpha=self.decomp_alpha,
         )

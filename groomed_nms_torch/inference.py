@@ -1,10 +1,12 @@
 """Batched 3D detection inference: score -> top-k -> decode -> NMS -> top-k.
 
-Counterpart of ``groomed_nms_tpu/inference.py`` for still images, with
-classical greedy NMS (the test-time default).  The two per-anchor passes
-are the hand-written kernels of ``ops/kernels.py``: K1 scores every anchor
-straight from the head's ``fused_raw`` tensor, K2 runs greedy NMS on the
-decoded top-k.  Everything else is plain PyTorch on the same device.
+Counterpart of ``groomed_nms_tpu/inference.py`` for still images.  The
+per-anchor passes are the hand-written kernels of ``ops/kernels.py``: K1
+scores every anchor straight from the head's ``fused_raw`` tensor; the NMS
+is classical greedy NMS by K2 (the test-time default) or, with
+``use_differentiable_nms``, GrooMeD-NMS over the top ``diff_nms_boxes`` rows
+with K3 computing their overlap and prune matrices.  Everything else is
+plain PyTorch on the same device.
 
 Detection row layout (17 columns, original image scale):
   [x1, y1, x2, y2, score, cls,
@@ -23,7 +25,9 @@ import torch
 
 from .models.rpn_3d import N_BOX2D
 from .ops.boxes import bbox_transform_inv
-from .ops.geometry import alpha_to_rot_y, rot_y_to_alpha, snap_to_pi
+from .ops.geometry import (alpha_to_rot_y, get_corners_of_cuboid,
+                           rot_y_to_alpha, snap_to_pi)
+from .ops.groomed_nms import _rows, groomed_nms_boxes
 from .ops.kernels import fused_head_scores, greedy_nms
 
 
@@ -35,8 +39,16 @@ class DetectConfig:
     nms_thres: float = 0.4
     score_thres: float = 0.6
     clip_boxes: bool = False
-    # GrooMeD-NMS at test time (True) is not ported yet and is refused
+    # NMS flavour: classical greedy (False) or GrooMeD (True)
     use_differentiable_nms: bool = False
+    diff_nms_boxes: int = 512           # the reference caps at 500
+    diff_nms_pruning_method: str = "linear"
+    diff_nms_temperature: float = 0.1
+    diff_nms_valid_box_prob_threshold: float = 0.3
+    diff_nms_group_boxes: bool = True
+    diff_nms_mask_group_boxes: bool = True
+    diff_nms_group_size: int = 100
+    overlap_in_nms: str = "2d"
     # use_acceptance_prob_for_nms folds accept/un into the RANKING score
     # (pre-NMS top-k + NMS); use_un_for_score folds it into the WRITTEN
     # score column
@@ -54,12 +66,6 @@ def top_k_indices(scores, k):
     index first.  A stable descending sort gives that order on every device;
     ``torch.topk`` promises no order among ties."""
     return torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
-
-
-def _take_rows(x, idx):
-    """x [B, R, ...], idx [B, K] -> [B, K, ...]."""
-    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
 
 
 def select_top_pre_nms(outputs, rois, rois_3d, cfg: DetectConfig):
@@ -84,7 +90,7 @@ def select_top_pre_nms(outputs, rois, rois_3d, cfg: DetectConfig):
         accept = None
     scores = fused_head_scores(fused, accept, num_classes=c)
     idx = top_k_indices(scores, min(cfg.nms_topN_pre, scores.shape[-1]))
-    sel_f = _take_rows(fused, idx).float()
+    sel_f = _rows(fused, idx).float()
     b3 = sel_f[..., c + N_BOX2D:c + N_BOX2D + n3d]
     b3 = torch.cat([b3[..., :8], torch.sigmoid(b3[..., 8:10]), b3[..., 10:]],
                    dim=-1)
@@ -176,29 +182,54 @@ def decode_detections(outputs, rois, rois_3d, p2, p2_inv, scale_factor,
     return dets, scores
 
 
-def nms_and_topk(dets, scores, cfg: DetectConfig, presorted: bool = False):
-    """Top-k pre-NMS -> greedy NMS (K2) -> top-k post.
+def _groomed_keep_score(d, vals, cfg: DetectConfig):
+    """GrooMeD-NMS at test time on the first ``diff_nms_boxes`` rows:
+    returns those rows and their ranking score, the rescored value where
+    kept and -1 elsewhere (the reference orders its survivors by the
+    rescored value; the written score column stays the original)."""
+    k = min(cfg.diff_nms_boxes, d.shape[1])
+    d, vals = d[:, :k], vals[:, :k]
+    corners = None
+    if cfg.overlap_in_nms != "2d":
+        corners = get_corners_of_cuboid(d[..., 13], d[..., 14], d[..., 15],
+                                        d[..., 9], d[..., 10], d[..., 11],
+                                        d[..., 16])
+    res = groomed_nms_boxes(
+        vals, d[..., :4], corners=corners, overlap_in_nms=cfg.overlap_in_nms,
+        nms_threshold=cfg.nms_thres,
+        pruning_method=cfg.diff_nms_pruning_method,
+        temperature=cfg.diff_nms_temperature,
+        valid_box_prob_threshold=cfg.diff_nms_valid_box_prob_threshold,
+        group_boxes=cfg.diff_nms_group_boxes,
+        mask_group_boxes=cfg.diff_nms_mask_group_boxes,
+        group_size=cfg.diff_nms_group_size)
+    return d, torch.where(res.keep, res.rescored, -1.0)
 
-    [B, R, 17] -> ([B, topN_post, 17], valid [B, topN_post]).
+
+def nms_and_topk(dets, scores, cfg: DetectConfig, presorted: bool = False):
+    """Top-k pre-NMS -> NMS -> top-k post.
+
+    [B, R, 17] -> ([B, topN_post, 17], valid [B, topN_post]).  The NMS is
+    greedy (K2) or, with ``cfg.use_differentiable_nms``, GrooMeD (K3).
     ``presorted=True`` skips the first top-k when rows already come in
     descending score order (the ``im_detect_3d`` path).
     """
-    if cfg.use_differentiable_nms:
-        raise NotImplementedError(
-            "GrooMeD-NMS at test time is not ported yet; use greedy NMS "
-            "(use_differentiable_nms=False)")
     k_pre = min(cfg.nms_topN_pre, scores.shape[1])
     if presorted:
         d, vals = dets[:, :k_pre], scores[:, :k_pre]
     else:
         idx = top_k_indices(scores, k_pre)
-        d, vals = _take_rows(dets, idx), torch.gather(scores, 1, idx)
-    keep = greedy_nms(d[..., :4].contiguous(), vals.contiguous(),
-                      nms_threshold=cfg.nms_thres, shift=1.0)
-    keep_score = torch.where(keep, vals, -1.0)
-    post_idx = top_k_indices(keep_score, min(cfg.nms_topN_post, k_pre))
+        d, vals = _rows(dets, idx), torch.gather(scores, 1, idx)
+    if cfg.use_differentiable_nms:
+        d, keep_score = _groomed_keep_score(d, vals, cfg)
+    else:
+        keep = greedy_nms(d[..., :4].contiguous(), vals.contiguous(),
+                          nms_threshold=cfg.nms_thres, shift=1.0)
+        keep_score = torch.where(keep, vals, -1.0)
+    post_idx = top_k_indices(keep_score,
+                             min(cfg.nms_topN_post, keep_score.shape[1]))
     post_vals = torch.gather(keep_score, 1, post_idx)
-    return _take_rows(d, post_idx), post_vals > 0
+    return _rows(d, post_idx), post_vals > 0
 
 
 def im_detect_3d(outputs, rois, rois_3d, p2, p2_inv, scale_factor,

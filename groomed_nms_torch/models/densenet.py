@@ -9,7 +9,8 @@ maps onto the ``state_dict`` name by name (``utils/weights.py``).
 
 The compute dtype is not part of the module: run it under
 ``torch.autocast`` for bf16, with the input and the module in
-``channels_last`` on the GPU.  BatchNorm keeps f32 parameters and statistics.
+``channels_last`` on the GPU.  BatchNorm keeps f32 parameters and statistics
+and, in train mode, updates them as flax does (``FlaxBatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -53,8 +54,32 @@ def tiny_densenet_config() -> DenseNetConfig:
                           stem_features=16)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates the running statistics
+    as flax's ``nn.BatchNorm`` does: the EMA of the batch mean and of the
+    **biased** batch variance (torch's own update uses the unbiased one,
+    n/(n-1) times larger), both in f32.  The output is normalised with the
+    batch statistics, as in torch.  Eval mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        # the batch mean and 1/sqrt(var + eps) come from the same pass that
+        # normalises (f32 for bf16 inputs too); var is recovered from them
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            var = invstd.float().pow(-2) - self.eps
+            self.running_mean.mul_(1.0 - m).add_(m * mean.float())
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
 def _bn(c, cfg):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=cfg.bn_momentum)
+    return FlaxBatchNorm2d(c, eps=1e-5, momentum=cfg.bn_momentum)
 
 
 class DenseLayer(nn.Module):

@@ -22,7 +22,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "groomed_nms_torch"
 # -fmad=false and no fast math: no fused multiply-add, IEEE division, so a
 # kernel's float arithmetic rounds op by op as its plain PyTorch version's
-# separate ops do (csrc/greedy_nms.cu relies on it for exact keep masks)
+# separate ops do (csrc/greedy_nms.cu relies on it for exact keep masks,
+# csrc/iou_prune.cu for IoUs that meet the GrooMeD threshold exactly as the
+# plain version's do)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -73,6 +75,16 @@ def greedy_nms_lib():
     lib.greedy_nms.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_float, ctypes.c_float, p]
     lib.greedy_nms.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def iou_prune_lib():
+    """The IoU/prune (K3) library with its C entry's signature declared."""
+    lib = ctypes.CDLL(str(build("iou_prune.cu")))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.iou_prune.argtypes = [p, p, p, p, i, i, i, f, f, f, p]
+    lib.iou_prune.restype = ctypes.c_int
     return lib
 
 

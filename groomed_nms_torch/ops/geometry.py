@@ -1,6 +1,8 @@
-"""Orientation conversions (counterpart of ``groomed_nms_tpu/ops/geometry.py``).
+"""Cuboid corners and orientation conversions (counterpart of
+``groomed_nms_tpu/ops/geometry.py``).
 
-KITTI camera frame: X right, Y down, Z forward.
+KITTI camera frame: X right, Y down, Z forward.  Corner numbering is the
+reference's ``iou_3d_convention``: corners 2, 3, 6, 7 are the bottom face.
 """
 
 from __future__ import annotations
@@ -8,6 +10,31 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+# unit-cube corner offsets: l3d along X on corners 1, 3, 5, 6, h3d along Y
+# on 2, 3, 6, 7, w3d along Z on 4, 5, 6, 7
+_SIGNS_X = (-1.0, 1.0, -1.0, 1.0, -1.0, 1.0, 1.0, -1.0)
+_SIGNS_Y = (-1.0, -1.0, 1.0, 1.0, -1.0, -1.0, 1.0, 1.0)
+_SIGNS_Z = (-1.0, -1.0, -1.0, -1.0, 1.0, 1.0, 1.0, 1.0)
+
+
+def get_corners_of_cuboid(x3d, y3d, z3d, w3d, h3d, l3d, ry3d):
+    """Corners [..., 3, 8] of cuboids rotated by ``ry3d`` about camera Y:
+    l3d spans X, h3d spans Y, w3d spans Z, then R_y and the translation."""
+    def signs(values):
+        # non-blocking: a blocking copy to the card would wait for it
+        return torch.tensor(values, dtype=x3d.dtype).to(x3d.device,
+                                                         non_blocking=True)
+
+    lx = 0.5 * l3d[..., None] * signs(_SIGNS_X)
+    ly = 0.5 * h3d[..., None] * signs(_SIGNS_Y)
+    lz = 0.5 * w3d[..., None] * signs(_SIGNS_Z)
+    c, s = torch.cos(ry3d)[..., None], torch.sin(ry3d)[..., None]
+    gx = c * lx + s * lz + x3d[..., None]
+    gy = ly + y3d[..., None]
+    gz = -s * lx + c * lz + z3d[..., None]
+    return torch.stack([gx, gy, gz], dim=-2)
 
 
 def snap_to_pi(theta):

@@ -9,6 +9,11 @@ K2 ``greedy_nms`` (CUDA C++, ``csrc/greedy_nms.cu``) replaces
 ``groomed_nms_tpu/ops/pallas_kernels.py::greedy_nms_pallas``: batched exact
 greedy NMS over score-sorted rows.
 
+K3 ``fused_iou_prune`` (CUDA C++, ``csrc/iou_prune.cu``) replaces
+``groomed_nms_tpu/ops/pallas_kernels.py::fused_iou_prune``: for score-sorted
+boxes, the pairwise IoU matrix and the GrooMeD-NMS prune matrix
+``pruning(iou)`` kept strictly lower triangular, padding zeroed.
+
 K4 ``dense_block_eval`` (CUDA C++, ``csrc/dense_block.cu``) replaces
 ``groomed_nms_tpu/ops/pallas_dense_block.py::dense_block_eval``: one
 eval-mode DenseNet block with BatchNorm folded to (mul, add), for the
@@ -38,6 +43,7 @@ _NMS_BLOCK = 64              # rows / columns per uint64 mask word
 # the sweep's removed bitset (one word per 64 rows) and its 584 bytes of
 # static shared memory stay under the 48 KB a block gets without opting in
 _NMS_MAX_N = 64 * 6000
+_IOU_TILE = 32               # K3: output tile edge (csrc/iou_prune.cu)
 
 
 def _device_kind(t):
@@ -208,6 +214,110 @@ def greedy_nms(boxes, scores, *, nms_threshold=0.4, shift=1.0):
 
 
 greedy_nms.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: fused IoU + prune matrices (CUDA C++)
+# ---------------------------------------------------------------------------
+
+PRUNING_METHODS = ("linear", "sigmoidal", "soft_nms")
+
+
+def prune_transform(iou, nms_threshold, temperature, pruning_method):
+    """p(iou), the probability that an overlap prunes a lower-scored box,
+    as K3's body writes it: ``linear`` iou, ``sigmoidal`` sigmoid((iou -
+    t) / T), ``soft_nms`` 1 - exp(-iou^2 / T)."""
+    if pruning_method == "linear":
+        return iou
+    if pruning_method == "sigmoidal":
+        return torch.sigmoid((iou - nms_threshold) / temperature)
+    if pruning_method == "soft_nms":
+        return 1.0 - torch.exp(-(iou * iou) / temperature)
+    raise NotImplementedError(f"pruning method {pruning_method!r}")
+
+
+def fused_iou_prune_plain(boxes, valid, *, nms_threshold=0.4,
+                          temperature=0.1, pruning_method="linear",
+                          shift=0.0):
+    """K3's function in PyTorch, in the kernel's operation order: ``iw``,
+    ``ih``, ``inter``, both areas, ``union = max(a + b - inter, 1e-12)``,
+    ``inter / union``, then the prune transform, the strict lower triangle,
+    and zeros wherever either box is padding."""
+    ax1, ay1, ax2, ay2 = (c[:, :, None] for c in boxes.unbind(-1))
+    bx1, by1, bx2, by2 = (c[:, None, :] for c in boxes.unbind(-1))
+    iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1) + shift
+          ).clamp_min(0.0)
+    ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1) + shift
+          ).clamp_min(0.0)
+    inter = iw * ih
+    area_a = (ax2 - ax1 + shift) * (ay2 - ay1 + shift)
+    area_b = (bx2 - bx1 + shift) * (by2 - by1 + shift)
+    iou = inter / (area_a + area_b - inter).clamp_min(1e-12)
+    p = prune_transform(iou, nms_threshold, temperature, pruning_method)
+    n = boxes.shape[1]
+    lower = torch.ones(n, n, dtype=torch.bool, device=boxes.device).tril(-1)
+    vv = valid[:, :, None] & valid[:, None, :]
+    return (torch.where(vv, iou, 0.0),
+            torch.where(vv & lower, p, 0.0))
+
+
+@torch.no_grad()
+def fused_iou_prune(boxes, valid=None, *, nms_threshold=0.4, temperature=0.1,
+                    pruning_method="linear", shift=0.0):
+    """Pairwise IoU and GrooMeD-NMS prune matrices of score-sorted boxes.
+
+    ``boxes`` [B, N, 4] f32 contiguous, rows in descending score order;
+    ``valid`` [B, N] bool contiguous on the same device (None: every row is
+    real).  Returns ``(iou, prune)``, each [B, N, N] f32: ``prune[i, j]`` is
+    ``pruning(iou[i, j])`` for ``j < i`` and 0 on and above the diagonal,
+    and both are 0 wherever row i or column j is padding.  ``pruning`` is
+    "linear" (the identity), "sigmoidal" ``sigmoid((iou - t) / T)`` or
+    "soft_nms" ``1 - exp(-iou^2 / T)``.  Runs under ``torch.no_grad()``: K3
+    has no backward, and both callers stop the gradient of the overlaps.
+    """
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError(f"boxes must be [B, N, 4] f32, got "
+                         f"{tuple(boxes.shape)} {boxes.dtype}")
+    if not boxes.is_contiguous():
+        raise ValueError("boxes must be contiguous")
+    if pruning_method not in PRUNING_METHODS:
+        raise ValueError(f"pruning_method must be one of {PRUNING_METHODS}, "
+                         f"got {pruning_method!r}")
+    b, n, _ = boxes.shape
+    if valid is None:
+        valid = torch.ones((b, n), dtype=torch.bool, device=boxes.device)
+    if valid.shape != (b, n) or valid.dtype != torch.bool or \
+            valid.device != boxes.device or not valid.is_contiguous():
+        raise ValueError(f"valid must be a contiguous bool [{b}, {n}] on "
+                         f"{boxes.device}, got {tuple(valid.shape)} "
+                         f"{valid.dtype} on {valid.device}")
+    kw = dict(nms_threshold=nms_threshold, temperature=temperature,
+              pruning_method=pruning_method, shift=shift)
+    if _device_kind(boxes) == "cpu":
+        return fused_iou_prune_plain(boxes, valid, **kw)
+
+    if b > 65535 or n > 65535 * _IOU_TILE:
+        raise ValueError(f"fused_iou_prune takes B <= 65535 and N <= "
+                         f"{65535 * _IOU_TILE}, got B={b}, N={n}")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned (rows load as float4)")
+    lib = _build.iou_prune_lib()
+    iou = torch.empty((b, n, n), dtype=torch.float32, device=boxes.device)
+    prune = torch.empty_like(iou)
+    with torch.cuda.device(boxes.device):
+        err = lib.iou_prune(
+            boxes.data_ptr(), valid.data_ptr(), iou.data_ptr(),
+            prune.data_ptr(), b, n, PRUNING_METHODS.index(pruning_method),
+            float(nms_threshold), float(temperature), float(shift),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_iou_prune kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_iou_prune.launches += 1
+    return iou, prune
+
+
+fused_iou_prune.launches = 0
 
 
 # ---------------------------------------------------------------------------

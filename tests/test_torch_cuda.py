@@ -15,11 +15,13 @@ import torch
 
 from groomed_nms_torch.anchors import locate_anchors
 from groomed_nms_torch.eval.tester import make_infer
+from groomed_nms_torch.flagship import build_flagship_train
 from groomed_nms_torch.inference import DetectConfig
 from groomed_nms_torch.models.densenet import tiny_densenet_config
 from groomed_nms_torch.models.fast_eval import FastEvalRPN3D
 from groomed_nms_torch.models.rpn_3d import RPN3D, RPNConfig
 from groomed_nms_torch.ops import kernels
+from groomed_nms_torch.ops.groomed_nms import groomed_nms_boxes
 from groomed_nms_torch.utils.weights import init_weights
 
 pytestmark = pytest.mark.cuda
@@ -229,3 +231,107 @@ def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
     assert err.mean() <= 0.02 * f_ref.abs().mean()
     torch.testing.assert_close(got.accept_prob.cpu(), ref.accept_prob,
                                rtol=0, atol=0.02)
+
+
+@pytest.mark.parametrize("method", ["linear", "sigmoidal", "soft_nms"])
+@pytest.mark.parametrize("b,n", [(8, 512), (1, 1000), (1, 1), (3, 33),
+                                 (2, 300)])
+def test_iou_prune_kernel_matches_plain(cuda, b, n, method):
+    """IoU identical and the linear prune identical (the same f32 ops in
+    the same order, no FMA); sigmoid and exp within 1e-6."""
+    boxes, scores = _nms_case(np.random.default_rng(n), b, n)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    valid = torch.from_numpy(scores > 0).to(cuda)
+    before = kernels.fused_iou_prune.launches
+    iou, prune = kernels.fused_iou_prune(boxes, valid, nms_threshold=0.4,
+                                         temperature=0.1,
+                                         pruning_method=method)
+    assert kernels.fused_iou_prune.launches == before + 1
+    ref_iou, ref_prune = kernels.fused_iou_prune_plain(
+        boxes, valid, nms_threshold=0.4, temperature=0.1,
+        pruning_method=method)
+    torch.cuda.synchronize()
+    assert iou.shape == prune.shape == (b, n, n)
+    assert torch.equal(iou, ref_iou)
+    if method == "linear":
+        assert torch.equal(prune, ref_prune)
+    else:
+        torch.testing.assert_close(prune, ref_prune, rtol=0, atol=1e-6)
+    assert not prune.triu().any()
+
+
+def test_iou_prune_kernel_refuses_misaligned_boxes(cuda):
+    flat = torch.zeros(1 + 2 * 10 * 4, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.fused_iou_prune(flat[1:].view(2, 10, 4))
+
+
+@pytest.mark.parametrize("b,n", [(8, 512), (1, 1000)])
+def test_groomed_nms_operator_on_cuda_matches_cpu(cuda, b, n):
+    """Sort, K3, grouping and rescoring on the card against the CPU path:
+    leaders and keep identical, rescored within 1e-6."""
+    boxes, scores = _nms_case(np.random.default_rng(b * n), b, n)
+    scores = np.random.default_rng(n).permutation(scores, axis=1)
+    boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
+    valid = scores > 0
+    ref = groomed_nms_boxes(scores, boxes, valid)
+    before = kernels.fused_iou_prune.launches
+    got = groomed_nms_boxes(scores.to(cuda), boxes.to(cuda), valid.to(cuda))
+    assert kernels.fused_iou_prune.launches == before + 1
+    assert torch.equal(got.leader.cpu(), ref.leader)
+    assert torch.equal(got.keep.cpu(), ref.keep) and ref.keep.any()
+    torch.testing.assert_close(got.rescored.cpu(), ref.rescored, rtol=0,
+                               atol=1e-6)
+
+
+def _perturb_(model, seed):
+    """BatchNorm weights ~ U(0.5, 1.5), running means ~ N(0, 0.2), running
+    variances ~ U(0.5, 1.5) and every bias ~ N(0, 0.2), from a seed: no
+    parameter starts at 0."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(torch.rand(n, generator=g) + 0.5)
+                m.running_mean.copy_(torch.randn(n, generator=g) * 0.2)
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+            if getattr(m, "bias", None) is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.2)
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One step of the flagship train workload with the tiny backbone at
+    2x64x128 in f32, TF32 off, on the card (K3 in the loss) and on the CPU
+    from the same seeds: every stat at rtol 1e-3 (atol 1e-5) and each
+    parameter and running statistic within 1e-4 of the tensor's largest
+    magnitude.  (At random init DenseNet-121's train-mode step turns a
+    1e-7 relative change of its weights into a ~0.4% change of the
+    update.)"""
+    small = dict(batch=2, height=64, width=128, src_hw=(48, 96),
+                 compute_dtype=None, backbone=tiny_densenet_config())
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = []
+        for device in ("cpu", cuda):
+            step, state, batch = build_flagship_train(device=device, **small)
+            _perturb_(state.model, seed=5)
+            before = kernels.fused_iou_prune.launches
+            stats = step(state, batch)
+            if device != "cpu":
+                assert kernels.fused_iou_prune.launches == before + 1
+            results.append(({k: float(v) for k, v in stats.items()},
+                            {k: v.cpu() for k, v in
+                             state.model.state_dict().items()}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (s_c, p_c), (s_g, p_g) = results
+    assert s_c["fg_num"] > 0
+    for k in s_c:
+        np.testing.assert_allclose(s_g[k], s_c[k], rtol=1e-3, atol=1e-5,
+                                   err_msg=k)
+    for k, ref in p_c.items():
+        if ref.is_floating_point():
+            err = (p_g[k] - ref).abs().max()
+            assert err <= 1e-4 * ref.abs().max(), k

@@ -149,6 +149,9 @@ def test_decode_and_nms_match_jax(decomp_alpha):
 
 
 def test_differentiable_nms_at_test_is_refused():
-    cfg = inference.DetectConfig(use_differentiable_nms=True)
-    with pytest.raises(NotImplementedError):
+    """GrooMeD-NMS at test time is ported; it refuses a pruning method it
+    does not know."""
+    cfg = inference.DetectConfig(use_differentiable_nms=True,
+                                 diff_nms_pruning_method="no_such_method")
+    with pytest.raises(ValueError, match="pruning_method"):
         inference.nms_and_topk(torch.zeros(1, 5, 17), torch.ones(1, 5), cfg)
