@@ -24,7 +24,9 @@ Phases, in order; any failure raises and exits non-zero:
                 block-1 [8, 64, 128, 440] -> 256 ch and block-2
                 [8, 128, 64, 220] -> 512 ch shapes, bf16, seeded input and
                 folded affines; relative errors, kernel and plain times,
-                TFLOP/s;
+                TFLOP/s, the bound (kernels.dense_block_work at the card's
+                peaks) and the kernel's share of it, and as a yardstick the
+                block's 2L cuDNN convolutions alone at the same shapes;
   7. fast_eval -- the weight-folded engine: (a) on the card against the CPU
                 path at 2x64x128 bf16; (b) against the rpn3d engine at full
                 size from one RPN3D with perturbed BatchNorm statistics;
@@ -62,6 +64,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from groomed_nms_torch.config import load_config
 from groomed_nms_torch.data.augment import preprocess_images
@@ -109,6 +112,13 @@ K3_SHAPES = {"train": (8, 512), "analysis": (1, 1000)}
 # (measured on the CPU), so two backends cannot agree on it to 1e-4
 
 TRAIN_RTOL, TRAIN_ATOL, TRAIN_PARAM_REL = 1e-3, 1e-5, 1e-4
+# the H100 SXM's published peaks (dense, 700 W): bf16 tensor-core FLOP/s,
+# f32 FLOP/s outside the tensor cores, device-memory bytes/s
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# f32 operations of one IoU test of K2 and K3 (min, max, sub, add, clamp for
+# each side, product, union, clamp, divide, compare) and of K1 per logit
+# (exp, sum, max, divide)
+IOU_OPS, HEAD_OPS = 16, 4
 
 
 def card_line():
@@ -165,10 +175,37 @@ def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev):
             t(rs.normal(size=(layers, growth, 9 * bw)) / np.sqrt(9 * bw)))
 
 
-def dense_block_gflop(b, c0, h, w, layers, growth, bw):
-    """The block's conv work: 2 * pixels * bw * (sum of cin + 9 * G * L)."""
-    k1 = sum(c0 + l * growth for l in range(layers))
-    return 2.0 * b * h * w * bw * (k1 + 9 * growth * layers) / 1e9
+def bound(ops, nbytes, peak_ops):
+    """The least time of a kernel's work on the card, (ms, limiter): the
+    larger of its operations over ``peak_ops`` and its bytes (each input read
+    once, each output written once) over the memory rate."""
+    ops_ms, bytes_ms = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev):
+    """K4's yardstick (the port never calls it): the block's 2L cuDNN
+    convolutions alone, bf16, channels_last; per layer the 1x1 from a
+    contiguous [b, cin, h, w] to bw and the dilated 3x3 from [b, bw, h, w]
+    to G.  No BatchNorm, ReLU or concatenation.  Returns a function that
+    runs them all."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def t(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.1).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    xs = [t(b, c0 + l * growth, h, w) for l in range(layers)]
+    k1s = [t(bw, c0 + l * growth, 1, 1) for l in range(layers)]
+    k2s = [t(growth, bw, 3, 3) for _ in range(layers)]
+    hin = t(b, bw, h, w)
+
+    def run():
+        for x, k1, k2 in zip(xs, k1s, k2s):
+            F.conv2d(x, k1)
+            F.conv2d(hin, k2, padding=dil, dilation=dil)
+    return run
 
 
 def perturbed_rpn3d(seed):
@@ -638,12 +675,19 @@ def main():
                      20, flush)
         plain_ms = time_ms(lambda: kernels.dense_block_eval_plain(
             *bargs, dilation=dil), 3, flush)
-        gflop = dense_block_gflop(*dims)
-        print(f"K4 {name}: {gflop:.1f} GFLOP; kernel {ms:.4f} ms "
-              f"({gflop / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms "
-              f"({gflop / plain_ms:.1f} TFLOP/s) {stamp}", flush=True)
+        lib_ms = time_ms(dense_block_convs(*dims, dil, dev), 20, flush)
+        flop, nbytes = kernels.dense_block_work(*dims)
+        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16)
+        gflop = flop / 1e9
+        print(f"K4 {name}: {gflop:.2f} GFLOP, {nbytes / 1e6:.1f} MB; bound "
+              f"{bound_ms:.4f} ms ({bound_by}); kernel {ms:.4f} ms "
+              f"({gflop / ms:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound), "
+              f"plain {plain_ms:.4f} ms ({gflop / plain_ms:.1f} TFLOP/s); "
+              f"cuDNN's {2 * dims[4]} convs alone {lib_ms:.4f} ms "
+              f"({gflop / lib_ms:.1f} TFLOP/s) {stamp}", flush=True)
         k4[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max_abs,
-                        max_rel=max_rel, mean_rel=mean_rel)
+                        max_rel=max_rel, mean_rel=mean_rel, lib_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)
     torch.backends.cudnn.allow_tf32 = True
 
     # -- 7. fast_eval slice --------------------------------------------------
@@ -758,18 +802,40 @@ def main():
     train_launches = train_phase(stamp)
 
     # -- 12. results ----------------------------------------------------------
+    # bounds at the timed shapes: K1 reads the bf16 head and the f32
+    # acceptance and writes f32 scores; K2 tests each pair of rows once and
+    # moves boxes, scores and keep; K3 tests the lower triangle and writes
+    # two f32 [B, N, N] matrices.  No single PyTorch call computes K1-K3's
+    # functions (library_ms null); K4's is its cuDNN yardstick (phase 6)
+    b, r, per = K1_SHAPE                    # 4 class logits a row
+    k1_bound = bound(b * r * 4 * HEAD_OPS, b * r * (per * 2 + 4 + 4),
+                     PEAK_F32)
+    b, n = K2_SHAPE
+    k2_bound = bound(b * n * (n - 1) // 2 * IOU_OPS, b * n * (16 + 4 + 1),
+                     PEAK_F32)
+    b, n = K3_SHAPES["train"]
+    k3_bound = bound(b * n * (n - 1) // 2 * IOU_OPS,
+                     b * n * (16 + 1) + 2 * b * n * n * 4, PEAK_F32)
+    k4_ops = sum(kernels.dense_block_work(*s[:-1])[0]
+                 for s in K4_BLOCKS.values())
+    k4_bytes = sum(kernels.dense_block_work(*s[:-1])[1]
+                   for s in K4_BLOCKS.values())
+    k4_bound = bound(k4_ops, k4_bytes, PEAK_BF16)
     print(json.dumps({"kernels": [
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:146",
          "launches": launches["fused_head_scores"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "greedy_nms", "route": "cuda",
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
          "launches": launches["greedy_nms"], "max_abs_err": float(n_diff),
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        # one batch's two blocks: ms and plain_ms are block 1 + block 2
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
+        # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
+        # block 1 + block 2
         {"name": "dense_block_eval", "route": "cuda",
          "source": "groomed_nms_torch/csrc/dense_block.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_dense_block.py:140",
@@ -778,14 +844,18 @@ def main():
          "max_rel_err": max(v["max_rel"] for v in k4.values()),
          "mean_rel_err": max(v["mean_rel"] for v in k4.values()),
          "ms": sum(v["ms"] for v in k4.values()),
-         "plain_ms": sum(v["plain_ms"] for v in k4.values())},
+         "plain_ms": sum(v["plain_ms"] for v in k4.values()),
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "library_ms": sum(v["lib_ms"] for v in k4.values())},
         # launches: the full-size train loop's; ms at its shape [8, 512, 4]
         {"name": "fused_iou_prune", "route": "cuda",
          "source": "groomed_nms_torch/csrc/iou_prune.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:76",
          "launches": train_launches,
          "max_abs_err": max(v["max_abs"] for v in k3.values()),
-         "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"]},
+         "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"],
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

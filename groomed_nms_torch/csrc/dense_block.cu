@@ -7,26 +7,48 @@
 // and appends out's G channels to the block's stack, cin = c0 + l * G.
 // BatchNorm arrives folded into per-channel (mul, add) vectors.
 //
-// What bounds it on this card: the block's stack does not fit on chip.
-// Block 1 of the flagship holds 128 x 440 x 256 bf16 per image (28.8 MB, the
-// TPU kernel kept it in VMEM), against 227 KB of shared memory per block.  So
-// the stack stays in device memory ([B, H, W, cmax], the channels_last
-// layout of [B, cmax, H, W]) and each layer runs as two implicit GEMMs over
-// pixels:
-//   kernel (a) conv1x1_bn_relu: M = pixels, N = bw, K = cin.  The operand
-//     load applies BN1 + ReLU in f32 and rounds to bf16 (no normalised copy
-//     of the stack is ever written); the epilogue applies BN2 + ReLU and
-//     writes the bf16 bottleneck h [pixels, bw] to a scratch buffer;
-//   kernel (b) conv3x3: M = pixels, N = G, K = 9 * bw, one k step per
-//     (tap, 32 channels); a tap outside the image loads 0 in h space (zero
-//     padding of relu(BN2(.)), as the TPU kernel's zeroed hpad ring).  The
-//     epilogue writes the G new channels into stack channels [cin, cin + G):
-//     no concatenation.
-// The O(L^2) traffic is the stack read of kernel (a), one bf16 read of the
-// channels a layer consumes; the O(L) traffic is h (written once, read by
-// the nine taps, mostly from L2).  Tensor cores through nvcuda::wmma
-// (bf16 x bf16 -> f32, 16x16x16), one k step at a time through shared
-// memory: a simple design first, no TMA / wgmma pipeline yet.
+// What bounds it on this card: operations.  The flagship's block 1
+// ([8, 64, 128, 440] -> 256 channels, L = 6) is 298.97 GFLOP against 288.4
+// MB of input read once and stack written once: 0.30 ms at 989 TFLOP/s
+// (bf16) against 0.09 ms at 3.35 TB/s; block 2 ([8, 128, 64, 220] -> 512,
+// L = 12) is 204.85 GFLOP, 0.21 ms.  The stack (28.8 MB per image for block
+// 1) does not fit in shared memory, so it stays in device memory ([B, H, W,
+// cmax], the channels_last layout of [B, cmax, H, W]) and each layer runs as
+// two implicit GEMMs on the tensor cores (ldmatrix + mma.sync.m16n8k16, bf16
+// x bf16 -> f32), both fed by cp.async rings in dynamic shared memory:
+//   kernel (a) conv1x1_bn_relu: M = 128 pixels, N = bw, K = cin in 32-channel
+//     steps through a 4-stage ring of [128 x 32] stack and [bw x 32] w1
+//     tiles.  The layer's mul1/add1 are staged once per block; each thread
+//     applies BN1 + ReLU (f32, rounded to bf16) to the 16-byte chunks it
+//     copied, between the stage's wait and the barrier, so no normalised copy
+//     of the stack is ever written.  The epilogue applies BN2 + ReLU and
+//     writes the bf16 bottleneck h [pixels, bw] through shared memory in
+//     16-byte stores.
+//   kernel (b) conv3x3: one block per 16 x 16 output tile of one image (one
+//     dilation phase of it, below), M = 256 pixels, N = G, K = 9 * bw.  The
+//     tile's h halo, 18 x 18 pixels, is staged in shared memory 32 channels at
+//     a time beside the matching [9 taps x G x 32] slice of w2, in a
+//     double-buffered ring; all nine taps read their A operand from that halo
+//     through ldmatrix, each lane giving its own (shifted) pixel's address,
+//     so h is read from device memory once per tile (1.27x with the halo),
+//     not once per tap.  A halo pixel outside the image is zero-filled by the
+//     copy itself (cp.async with src-size 0): the zero padding of
+//     relu(BN2(.)), as the TPU kernel's zeroed hpad ring.  A dilation d > 1
+//     splits the image into its d x d phases (y mod d, x mod d); within one
+//     phase the dilated 3x3 is an ordinary 3x3 on the phase's subgrid, so the
+//     halo is 18 x 18 pixels whatever d is.  The epilogue writes the G new
+//     channels into stack channels [cin, cin + G) through shared memory: no
+//     concatenation.
+// Shared-memory rows of 32 channels are padded by 16 bytes (a row stride of
+// 80 bytes), so the eight row addresses of each ldmatrix phase fall in eight
+// different bank groups.
+//
+// What it still leaves, on block 1: the h round trip through device memory
+// (0.69 GB written by (a) and read back by (b), ~0.4 ms at 3.35 TB/s) and
+// (a)'s O(L^2) stack re-reads (0.78 GB, ~0.23 ms), against 0.29 GB that the
+// block must move; every block re-reading its layer's weights from L2; and
+// mma.sync's rate, below wgmma's.  wgmma + TMA and one fused kernel per
+// layer that keeps h on chip are the next steps.
 //
 // Rounding points (the plain version, ops/kernels.py::
 // dense_block_eval_plain, has the same ones): BN1 affine and ReLU in f32 from
@@ -40,229 +62,381 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
 constexpr int kThreads = 256;      // 8 warps
-constexpr int kBM = 128;           // pixels per block
-constexpr int kBK = 32;            // channels per k step
-constexpr int kLds = kBK + 8;      // shared row stride in bf16 (80 bytes)
+
+// kernel (a): 128 pixels x 32 channels a k step, 4 stages
+constexpr int kBM = 128;
+constexpr int kBK = 32;
+constexpr int kLdA = kBK + 8;      // shared row stride in bf16 (80 bytes)
 constexpr int kVecs = kBK / 8;     // 16-byte vectors per row of a k step
+constexpr int kStages = 4;
 
-// 8 bf16 at a 16-byte aligned address -> 8 floats
-__device__ __forceinline__ void load8(const bf16* p, float f[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float2 t = __bfloat1622float2(h[q]);
-    f[2 * q] = t.x;
-    f[2 * q + 1] = t.y;
-  }
+// kernel (b): 16 x 16 output pixels, a halo of 18 x 18, 32 channels a stage
+constexpr int kTile = 16;
+constexpr int kHalo = kTile + 2;
+constexpr int kHaloPix = kHalo * kHalo;
+constexpr int kKC = 32;
+constexpr int kLdB = kKC + 8;      // shared row stride in bf16 (80 bytes)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 8 floats -> 8 bf16 (round to nearest even) in one 16-byte word
-__device__ __forceinline__ uint4 pack8(const float f[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) h[q] = __floats2bfloat162_rn(f[2 * q], f[2 * q + 1]);
-  return u;
+// 16 bytes global -> shared, bypassing L1; when !valid nothing is read and
+// the 16 bytes are zero-filled (src-size 0)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// the "memory" clobber keeps the compiler from moving this thread's reads
+// of a landed stage above the wait
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
+}
+
+// c[16 x 8] += a[16 x 16] (row) * b[16 x 8] (col), bf16 in, f32 sums
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fragment addresses for ldmatrix from [rows][k] tiles (k contiguous,
+// `ld` bf16 a row).  A, x4: lane -> row lane % 16, k half lane / 16.
+// B, x4 (two n8 tiles): lane -> n (lane % 8) + 8 * (lane / 16), k half
+// (lane / 8) % 2; registers {0, 1} are the first tile's, {2, 3} the second's.
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + ((lane >> 4) << 3);
+}
+__device__ __forceinline__ int b_koff(int lane) {
+  return ((lane >> 3) & 1) * 8;
+}
 
 // Kernel (a).  BN = bw.  Warp w owns rows (w % 4) * 32 .. +32 and columns
-// (w / 4) * BN / 2 .. +BN / 2 of the block's [128, BN] tile.
+// (w / 4) * BN / 2 .. +BN / 2 of the block's [128, BN] tile.  Dynamic shared
+// memory: kStages x ([128][kLdA] stack + [BN][kLdA] w1), then mul1 and add1
+// for the first ktiles * kBK channels; the epilogue reuses the ring.
 template <int BN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 conv1x1_bn_relu(const bf16* __restrict__ stack, long long npix, int cmax,
                 int cin, const bf16* __restrict__ mul1,
                 const bf16* __restrict__ add1, const bf16* __restrict__ w1,
                 const bf16* __restrict__ mul2, const bf16* __restrict__ add2,
                 bf16* __restrict__ h) {
-  constexpr int kWN = BN / 2;
-  constexpr int kNF = kWN / 16;
-  __shared__ __align__(128) bf16 As[kBM * kLds];
-  __shared__ __align__(128) bf16 Bs[BN * kLds];
-  __shared__ __align__(128) float Cs[kThreads / 32][16 * 16];
+  constexpr int kWN = BN / 2;                 // columns per warp
+  constexpr int kNT = kWN / 8;                // n8 tiles per warp (even)
+  constexpr int kStageElems = (kBM + BN) * kLdA;
+  constexpr int kAChunks = kBM * kVecs / kThreads;     // per thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int ktiles = (cin + kBK - 1) / kBK;
+  bf16* m1s = ring + kStages * kStageElems;
+  bf16* a1s = m1s + ktiles * kBK;
+
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp % 4, wn = warp / 4;
   const long long m0 = (long long)blockIdx.x * kBM;
 
-  FragC acc[2][kNF];
+  for (int k = tid; k < ktiles * kBK; k += kThreads) {
+    const bool in = k < cin;
+    m1s[k] = in ? mul1[k] : __float2bfloat16(0.0f);
+    a1s[k] = in ? add1[k] : __float2bfloat16(0.0f);
+  }
+
+  auto load_tile = [&](int kt, int stage) {
+    bf16* As = ring + stage * kStageElems;
+    bf16* Bs = As + kBM * kLdA;
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int s = 0; s < kAChunks; ++s) {
+      const int v = tid + s * kThreads;
+      const int r = v / kVecs, c = (v % kVecs) * 8;
+      const long long p = m0 + r;
+      const bool ok = p < npix && k0 + c < cin;
+      cp_async16(As + r * kLdA + c, ok ? stack + p * cmax + k0 + c : stack, ok);
+    }
+    for (int v = tid; v < BN * kVecs; v += kThreads) {
+      const int n = v / kVecs, c = (v % kVecs) * 8;
+      const bool ok = k0 + c < cin;
+      cp_async16(Bs + n * kLdA + c, ok ? w1 + (long long)n * cmax + k0 + c : w1,
+                 ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load_tile(s, s);
+    cp_async_commit();
+  }
+  __syncthreads();                             // m1s / a1s
+
+  float acc[2][kNT][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < kNF; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < cin; k0 += kBK) {
-    // A: [128 pixels, 32 channels] of the stack, BN1 + ReLU on the load;
-    // channels >= cin (and pixels past the end) load as 0
-    for (int v = tid; v < kBM * kVecs; v += kThreads) {
-      const int r = v / kVecs, c = (v % kVecs) * 8;
-      const long long p = m0 + r;
-      const int k = k0 + c;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (p < npix && k < cin) {
-        float x[8], m[8], a[8];
-        load8(stack + p * cmax + k, x);
-        load8(mul1 + k, m);
-        load8(add1 + k, a);
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-        for (int q = 0; q < 8; ++q) x[q] = fmaxf(x[q] * m[q] + a[q], 0.0f);
-        val = pack8(x);
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStages - 2>();              // this thread's copies of kt
+    const int stage = kt % kStages;
+    bf16* As = ring + stage * kStageElems;
+    const bf16* Bs = As + kBM * kLdA;
+    // BN1 + ReLU on the chunks this thread copied (channels < cin only:
+    // the zero-filled rest must stay 0)
+#pragma unroll
+    for (int s = 0; s < kAChunks; ++s) {
+      const int v = tid + s * kThreads;
+      const int r = v / kVecs, c = (v % kVecs) * 8;
+      const int k = kt * kBK + c;
+      if (m0 + r < npix && k < cin) {
+        uint4* ptr = reinterpret_cast<uint4*>(As + r * kLdA + c);
+        uint4 u = *ptr;
+        const uint4 mu = *reinterpret_cast<const uint4*>(m1s + k);
+        const uint4 au = *reinterpret_cast<const uint4*>(a1s + k);
+        __nv_bfloat162* x2 = reinterpret_cast<__nv_bfloat162*>(&u);
+        const __nv_bfloat162* m2 = reinterpret_cast<const __nv_bfloat162*>(&mu);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&au);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 x = __bfloat1622float2(x2[q]);
+          const float2 m = __bfloat1622float2(m2[q]);
+          const float2 a = __bfloat1622float2(a2[q]);
+          x2[q] = __floats2bfloat162_rn(fmaxf(x.x * m.x + a.x, 0.0f),
+                                        fmaxf(x.y * m.y + a.y, 0.0f));
+        }
+        *ptr = u;
       }
-      *reinterpret_cast<uint4*>(&As[r * kLds + c]) = val;
     }
-    // B: w1 rows are output channels, K contiguous: [BN, 32]
-    for (int v = tid; v < BN * kVecs; v += kThreads) {
-      const int n = v / kVecs, c = (v % kVecs) * 8;
-      const int k = k0 + c;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k < cin) val = *reinterpret_cast<const uint4*>(w1 + (long long)n * cmax + k);
-      *reinterpret_cast<uint4*>(&Bs[n * kLds + c]) = val;
-    }
+    // every thread's tile kt has landed and been transformed, and every warp
+    // is done with stage (kt - 1) % kStages, which the next load refills
     __syncthreads();
+    if (kt + kStages - 1 < ktiles)
+      load_tile(kt + kStages - 1, (kt + kStages - 1) % kStages);
+    cp_async_commit();
+
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      FragA a[2];
+      uint32_t a[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * kLds + kk], kLds);
+        ldmatrix_x4(a[i], As + (wm * 32 + i * 16 + (lane & 15)) * kLdA + kk +
+                              (lane >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < kNF; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, &Bs[(wn * kWN + j * 16) * kLds + kk], kLds);
+      for (int jp = 0; jp < kNT / 2; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, Bs + (wn * kWN + jp * 16 + b_row(lane)) * kLdA + kk +
+                           b_koff(lane));
 #pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+        for (int i = 0; i < 2; ++i) {
+          mma16816(acc[i][2 * jp], a[i], b);
+          mma16816(acc[i][2 * jp + 1], a[i], b + 2);
+        }
       }
     }
-    __syncthreads();
   }
 
-  // epilogue through a per-warp 16x16 f32 tile: BN2 + ReLU, round, store h;
-  // lane -> (row lane / 2, 8 columns at (lane % 2) * 8)
-  float* cs = Cs[warp];
-  const int r = lane / 2, c = (lane % 2) * 8;
+  // epilogue: BN2 + ReLU in f32, round, stage [128][BN + 8] bf16 in the
+  // ring, then 16-byte stores of h.  Accumulator layout: c[0..1] at row
+  // lane / 4, columns 2 * (lane % 4) + {0, 1}; c[2..3] 8 rows below.
+  cp_async_wait<0>();
+  __syncthreads();
+  constexpr int kLdC = BN + 8;
+  bf16* Cs = ring;
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int j = 0; j < kNT; ++j) {
+    const int n = wn * kWN + j * 8 + 2 * t;
+    const float2 m = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(mul2 + n));
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(add2 + n));
 #pragma unroll
-    for (int j = 0; j < kNF; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long p = m0 + wm * 32 + i * 16 + r;
-      const int n = wn * kWN + j * 16 + c;
-      if (p < npix) {
-        float y[8], m[8], a[8];
-        load8(mul2 + n, m);
-        load8(add2 + n, a);
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-        for (int q = 0; q < 8; ++q) y[q] = fmaxf(cs[r * 16 + c + q] * m[q] + a[q], 0.0f);
-        *reinterpret_cast<uint4*>(h + p * BN + n) = pack8(y);
+      for (int half = 0; half < 2; ++half) {
+        const int r = wm * 32 + i * 16 + g + half * 8;
+        const float c0 = acc[i][j][2 * half], c1 = acc[i][j][2 * half + 1];
+        *reinterpret_cast<__nv_bfloat162*>(Cs + r * kLdC + n) =
+            __floats2bfloat162_rn(fmaxf(c0 * m.x + a.x, 0.0f),
+                                  fmaxf(c1 * m.y + a.y, 0.0f));
       }
-      __syncwarp();
     }
+  }
+  __syncthreads();
+  for (int v = tid; v < kBM * BN / 8; v += kThreads) {
+    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
+    const long long p = m0 + r;
+    if (p < npix)
+      *reinterpret_cast<uint4*>(h + p * BN + c) =
+          *reinterpret_cast<const uint4*>(Cs + r * kLdC + c);
   }
 }
 
-// Kernel (b).  GP = G rounded up to 16.  Warp w owns rows w * 16 .. +16 and
-// all GP columns; k runs over (tap, 32-channel chunk of bw).
-template <int GP>
-__global__ void __launch_bounds__(kThreads)
-conv3x3(const bf16* __restrict__ h, int bw, int height, int width,
-        long long npix, int dil, const bf16* __restrict__ w2, int growth,
-        bf16* __restrict__ stack, int cmax, int cin) {
-  constexpr int kNF = GP / 16;
-  constexpr int kSlots = kBM * kVecs / kThreads;   // A vectors per thread
-  __shared__ __align__(128) bf16 As[kBM * kLds];
-  __shared__ __align__(128) bf16 Bs[GP * kLds];
-  __shared__ __align__(128) float Cs[kThreads / 32][16 * 16];
+// Kernel (b).  NT = G / 8 n8 tiles.  Block (bx, by, z): image z / d^2, phase
+// (py, px) = ((z % d^2) / d, z % d); output pixel (i, j) of the tile is image
+// pixel (py + d * (16 by + i), px + d * (16 bx + j)) and halo pixel (i, j)
+// is image pixel (py + d * (16 by - 1 + i), px + d * (16 bx - 1 + j)).  Warp
+// w owns output rows 2w and 2w + 1 (one m16 tile each) and all G columns.
+// Dynamic shared memory: 2 stages x ([324][kLdB] halo + [9 * G][kLdB] w2);
+// the epilogue reuses the ring.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3(const bf16* __restrict__ h, int bw, int height, int width, int dil,
+        const bf16* __restrict__ w2, bf16* __restrict__ stack, int cmax,
+        int cin) {
+  constexpr int G = NT * 8;
+  constexpr int kHaloElems = kHaloPix * kLdB;
+  constexpr int kStageElems = kHaloElems + 9 * G * kLdB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const long long m0 = (long long)blockIdx.x * kBM;
+  const int phases = dil * dil;
+  const int img = blockIdx.z / phases, phase = blockIdx.z % phases;
+  const int py = phase / dil, px = phase % dil;
+  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
+  // a tile of the subgrid of a phase whose rows or columns end early
+  if (py + dil * ty0 >= height || px + dil * tx0 >= width) return;
+  const bf16* himg = h + (long long)img * height * width * bw;
 
-  // every k step, a thread loads the same (pixel, 8 channels) slots at
-  // another tap: decompose its pixels once
-  long long img[kSlots];
-  int py[kSlots], px[kSlots];
-  bool ok[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const long long p = m0 + (tid + s * kThreads) / kVecs;
-    ok[s] = p < npix;
-    long long q = ok[s] ? p : 0;
-    px[s] = (int)(q % width);
-    q /= width;
-    py[s] = (int)(q % height);
-    img[s] = q / height;
-  }
-
-  FragC acc[kNF];
-#pragma unroll
-  for (int j = 0; j < kNF; ++j) wmma::fill_fragment(acc[j], 0.0f);
-
-  const int chunks = bw / kBK;
-  const long long krow = 9LL * bw;                 // w2 row length
-  for (int step = 0; step < 9 * chunks; ++step) {
-    const int tap = step / chunks, k0 = (step % chunks) * kBK;
-    const int dy = (tap / 3 - 1) * dil, dx = (tap % 3 - 1) * dil;
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int v = tid + s * kThreads;
-      const int r = v / kVecs, c = (v % kVecs) * 8;
-      const int yy = py[s] + dy, xx = px[s] + dx;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[s] && yy >= 0 && yy < height && xx >= 0 && xx < width) {
-        const long long q = (img[s] * height + yy) * width + xx;
-        val = *reinterpret_cast<const uint4*>(h + q * bw + k0 + c);
-      }
-      *reinterpret_cast<uint4*>(&As[r * kLds + c]) = val;
+  auto load_chunk = [&](int ch, int stage) {
+    bf16* hs = ring + stage * kStageElems;
+    bf16* ws = hs + kHaloElems;
+    const int k0 = ch * kKC;
+    for (int v = tid; v < kHaloPix * 4; v += kThreads) {
+      const int hp = v / 4, c = (v % 4) * 8;
+      const int hy = hp / kHalo, hx = hp - hy * kHalo;
+      const int iy = py + dil * (ty0 - 1 + hy), ix = px + dil * (tx0 - 1 + hx);
+      const bool ok = iy >= 0 && iy < height && ix >= 0 && ix < width;
+      cp_async16(hs + hp * kLdB + c,
+                 ok ? himg + ((long long)iy * width + ix) * bw + k0 + c : h, ok);
     }
-    for (int v = tid; v < GP * kVecs; v += kThreads) {
-      const int n = v / kVecs, c = (v % kVecs) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (n < growth)
-        val = *reinterpret_cast<const uint4*>(w2 + n * krow + tap * bw + k0 + c);
-      *reinterpret_cast<uint4*>(&Bs[n * kLds + c]) = val;
+    // w2 [G][9 * bw], k = tap * bw + channel -> ws [tap][G][kLdB]
+    for (int v = tid; v < 9 * G * 4; v += kThreads) {
+      const int row = v / 4, c = (v % 4) * 8;
+      const int tap = row / G, n = row - tap * G;
+      cp_async16(ws + row * kLdB + c,
+                 w2 + (long long)n * 9 * bw + tap * bw + k0 + c, true);
     }
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
+
+  const int chunks = bw / kKC;
+  load_chunk(0, 0);
+  cp_async_commit();
+  for (int ch = 0; ch < chunks; ++ch) {
+    cp_async_wait<0>();
+    // chunk ch visible to all; every warp is done with the other stage
     __syncthreads();
+    if (ch + 1 < chunks) load_chunk(ch + 1, (ch + 1) & 1);
+    cp_async_commit();
+    const bf16* hs = ring + (ch & 1) * kStageElems;
+    const bf16* ws = hs + kHaloElems;
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, &As[warp * 16 * kLds + kk], kLds);
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ty = tap / 3, tx = tap % 3;
 #pragma unroll
-      for (int j = 0; j < kNF; ++j) {
-        FragB b;
-        wmma::load_matrix_sync(b, &Bs[j * 16 * kLds + kk], kLds);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int kk = 0; kk < kKC; kk += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int hp = (warp * 2 + i + ty) * kHalo + (lane & 15) + tx;
+          ldmatrix_x4(a[i], hs + hp * kLdB + kk + (lane >> 4) * 8);
+        }
+        const bf16* wt = ws + tap * G * kLdB + kk + b_koff(lane);
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4(b, wt + (jp * 16 + b_row(lane)) * kLdB);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma16816(acc[i][2 * jp], a[i], b);
+            mma16816(acc[i][2 * jp + 1], a[i], b + 2);
+          }
+        }
+        if (NT % 2) {
+          uint32_t b[2];
+          ldmatrix_x2(b, wt + ((NT - 1) * 8 + (lane & 7)) * kLdB);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma16816(acc[i][NT - 1], a[i], b);
+        }
       }
     }
-    __syncthreads();
   }
 
-  float* cs = Cs[warp];
-  const int r = lane / 2, c = (lane % 2) * 8;
-  const long long p = m0 + warp * 16 + r;
+  // epilogue: round to bf16, stage [256][G + 8] in the ring, then 16-byte
+  // stores into stack channels [cin, cin + G) of the pixels in the image
+  cp_async_wait<0>();
+  __syncthreads();
+  constexpr int kLdC = G + 8;
+  bf16* Cs = ring;
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int j = 0; j < kNF; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int n = j * 16 + c;
-    if (p < npix && n < growth) {
-      float y[8];
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) y[q] = cs[r * 16 + c + q];
-      *reinterpret_cast<uint4*>(stack + p * cmax + cin + n) = pack8(y);
-    }
-    __syncwarp();
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = (warp * 2 + i) * kTile + g + half * 8;
+        *reinterpret_cast<__nv_bfloat162*>(Cs + r * kLdC + j * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+  __syncthreads();
+  bf16* simg = stack + (long long)img * height * width * cmax;
+  for (int v = tid; v < kTile * kTile * NT; v += kThreads) {
+    const int r = v / NT, c = (v % NT) * 8;
+    const int y = py + dil * (ty0 + r / kTile);
+    const int x = px + dil * (tx0 + r % kTile);
+    if (y < height && x < width)
+      *reinterpret_cast<uint4*>(simg + ((long long)y * width + x) * cmax + cin +
+                                c) =
+          *reinterpret_cast<const uint4*>(Cs + r * kLdC + c);
   }
+}
+
+constexpr size_t conv1_smem(int bn, int ktiles) {
+  return sizeof(bf16) * ((size_t)kStages * (kBM + bn) * kLdA +
+                         2 * (size_t)ktiles * kBK);
+}
+
+constexpr size_t conv2_smem(int growth) {
+  return sizeof(bf16) * 2 * (size_t)(kHaloPix + 9 * growth) * kLdB;
 }
 
 template <int BN>
@@ -270,18 +444,26 @@ cudaError_t launch_conv1(int grid, cudaStream_t s, const bf16* stack,
                          long long npix, int cmax, int cin, const bf16* mul1,
                          const bf16* add1, const bf16* w1, const bf16* mul2,
                          const bf16* add2, bf16* h) {
-  conv1x1_bn_relu<BN><<<grid, kThreads, 0, s>>>(stack, npix, cmax, cin, mul1,
-                                                add1, w1, mul2, add2, h);
+  const size_t bytes = conv1_smem(BN, (cin + kBK - 1) / kBK);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv1x1_bn_relu<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  conv1x1_bn_relu<BN><<<grid, kThreads, bytes, s>>>(
+      stack, npix, cmax, cin, mul1, add1, w1, mul2, add2, h);
   return cudaGetLastError();
 }
 
-template <int GP>
-cudaError_t launch_conv2(int grid, cudaStream_t s, const bf16* h, int bw,
-                         int height, int width, long long npix, int dil,
-                         const bf16* w2, int growth, bf16* stack, int cmax,
-                         int cin) {
-  conv3x3<GP><<<grid, kThreads, 0, s>>>(h, bw, height, width, npix, dil, w2,
-                                        growth, stack, cmax, cin);
+template <int NT>
+cudaError_t launch_conv2(dim3 grid, cudaStream_t s, const bf16* h, int bw,
+                         int height, int width, int dil, const bf16* w2,
+                         bf16* stack, int cmax, int cin) {
+  const size_t bytes = conv2_smem(NT * 8);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  conv3x3<NT><<<grid, kThreads, bytes, s>>>(h, bw, height, width, dil, w2,
+                                            stack, cmax, cin);
   return cudaGetLastError();
 }
 
@@ -306,8 +488,16 @@ extern "C" int dense_block_eval(void* stack, void* h, const void* mul1,
       cmax != c0 + layers * growth || dilation < 1)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (npix + kBM - 1) / kBM;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int grid = (int)blocks;
+  // the 3x3's grid: tiles of one phase's subgrid x (image, phase)
+  const long long sub_h = (height + dilation - 1) / dilation;
+  const long long sub_w = (width + dilation - 1) / dilation;
+  const long long grid_z = (long long)batch * dilation * dilation;
+  if (blocks > 0x7fffffffLL || grid_z > 65535 ||
+      (sub_h + kTile - 1) / kTile > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int grid1 = (int)blocks;
+  const dim3 grid2((unsigned)((sub_w + kTile - 1) / kTile),
+                   (unsigned)((sub_h + kTile - 1) / kTile), (unsigned)grid_z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* st = static_cast<bf16*>(stack);
   bf16* hb = static_cast<bf16*>(h);
@@ -321,17 +511,21 @@ extern "C" int dense_block_eval(void* stack, void* h, const void* mul1,
     const bf16* k2 = static_cast<const bf16*>(w2) + (long long)l * growth * 9 * bw;
     cudaError_t err;
     switch (bw) {
-      case 32: err = launch_conv1<32>(grid, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
-      case 64: err = launch_conv1<64>(grid, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
-      case 96: err = launch_conv1<96>(grid, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
-      default: err = launch_conv1<128>(grid, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
+      case 32: err = launch_conv1<32>(grid1, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
+      case 64: err = launch_conv1<64>(grid1, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
+      case 96: err = launch_conv1<96>(grid1, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
+      default: err = launch_conv1<128>(grid1, s, st, npix, cmax, cin, m1, a1, k1, m2, a2, hb); break;
     }
     if (err != cudaSuccess) return (int)err;
-    switch ((growth + 15) / 16) {
-      case 1: err = launch_conv2<16>(grid, s, hb, bw, height, width, npix, dilation, k2, growth, st, cmax, cin); break;
-      case 2: err = launch_conv2<32>(grid, s, hb, bw, height, width, npix, dilation, k2, growth, st, cmax, cin); break;
-      case 3: err = launch_conv2<48>(grid, s, hb, bw, height, width, npix, dilation, k2, growth, st, cmax, cin); break;
-      default: err = launch_conv2<64>(grid, s, hb, bw, height, width, npix, dilation, k2, growth, st, cmax, cin); break;
+    switch (growth / 8) {
+      case 1: err = launch_conv2<1>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      case 2: err = launch_conv2<2>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      case 3: err = launch_conv2<3>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      case 4: err = launch_conv2<4>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      case 5: err = launch_conv2<5>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      case 6: err = launch_conv2<6>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      case 7: err = launch_conv2<7>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
+      default: err = launch_conv2<8>(grid2, s, hb, bw, height, width, dilation, k2, st, cmax, cin); break;
     }
     if (err != cudaSuccess) return (int)err;
   }

@@ -355,6 +355,20 @@ def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
     return stack.contiguous(memory_format=torch.channels_last)
 
 
+def dense_block_work(b, c0, h, w, layers, growth, bw):
+    """The least work of one bf16 dense block on the kernel: (FLOP, bytes).
+
+    FLOP: 2 * pixels * bw * (sum over layers of cin + 9 * G), the 1x1 and
+    3x3 products.  Bytes: the input x0 read once and the whole stack
+    [B, c0 + L*G, H, W] written once, 2 bytes an element (the weights,
+    under 2% of it on DenseNet-121's blocks, are left out)."""
+    pixels = b * h * w
+    k1 = sum(c0 + l * growth for l in range(layers))
+    flop = 2 * pixels * bw * (k1 + 9 * growth * layers)
+    nbytes = pixels * (c0 + c0 + layers * growth) * 2
+    return flop, nbytes
+
+
 def _check_dense_block(x0, mul1, add1, w1, mul2, add2, w2, dilation):
     """K4's argument checks; returns (layers, c0, cmax, bw, growth)."""
     if x0.dim() != 4 or x0.dtype not in _BLOCK_DTYPES:

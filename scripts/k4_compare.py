@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Time the dense-block kernel K4 of this checkout, and of another one, on
+one CUDA card, with each call split into its 1x1 and 3x3 kernels.
+
+    python3 scripts/k4_compare.py [--other DIR ...] [--reps 20]
+
+Builds ``groomed_nms_torch/csrc/dense_block.cu`` of this checkout and, with
+``--other``, the same file of other checkouts (the parent commit unpacked by
+``git archive``, say), with the same nvcc flags.  At each of the flagship's
+two kernel blocks (``chip_smoke.K4_BLOCKS``) it checks each library against
+``dense_block_eval_plain`` with chip_smoke.py's tolerances, times them in
+the order others, this, this, others reversed (median device ms of
+``--reps`` calls, L2 flushed before each), and sums the device time of one
+call's kernels by name with ``torch.profiler``.  Prints one line per
+reading, each with the card's name and power limit, then one JSON object.
+A library that disagrees is still timed, marked so (a variant with a part
+switched off, to see what that part costs), and makes the exit code 1.
+Needs a CUDA card; imports torch, numpy and groomed_nms_torch only.
+"""
+
+import argparse
+import ctypes
+import json
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import (K4_BLOCKS, K4_MAX_REL, K4_MEAN_REL, PEAK_BF16,  # noqa: E402
+                        bound, card_line, dense_block_case, rel_err, time_ms)
+from groomed_nms_torch.ops import _build, kernels  # noqa: E402
+
+SOURCE = Path("groomed_nms_torch/csrc/dense_block.cu")
+KERNEL_NAMES = ("conv1x1_bn_relu", "conv3x3")
+
+
+def load(path):
+    """The library at ``path`` with its C entry declared."""
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dense_block_eval.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.dense_block_eval.restype = ctypes.c_int
+    return lib
+
+
+def run(lib, x0, mul1, add1, w1, mul2, add2, w2, dilation):
+    """``kernels.dense_block_eval``'s CUDA path on the library ``lib``."""
+    layers, bw, cmax = w1.shape
+    growth = w2.shape[1]
+    b, c0, h, w = x0.shape
+    stack = torch.empty((b, cmax, h, w), dtype=x0.dtype, device=x0.device,
+                        memory_format=torch.channels_last)
+    stack[:, :c0].copy_(x0)
+    hbuf = torch.empty((b * h * w, bw), dtype=x0.dtype, device=x0.device)
+    err = lib.dense_block_eval(
+        stack.data_ptr(), hbuf.data_ptr(), mul1.data_ptr(), add1.data_ptr(),
+        w1.data_ptr(), mul2.data_ptr(), add2.data_ptr(), w2.data_ptr(), b, h,
+        w, c0, cmax, layers, bw, growth, dilation,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_block_eval failed: CUDA error {err}")
+    return stack
+
+
+def split_ms(fn):
+    """Device ms of one call of ``fn``, summed per kernel name."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(KERNEL_NAMES, 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        for name in KERNEL_NAMES:
+            if name in e.key:
+                out[name] += us / 1e3
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, nargs="*", default=[],
+                    help="other checkouts whose K4 is timed beside this one's")
+    ap.add_argument("--reps", type=int, default=20)
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("k4_compare.py needs a CUDA device")
+    dev = torch.device("cuda")
+    stamp = f"[{card_line()}]"
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    others = [d.resolve().name for d in opts.other]
+    sources = [ROOT / SOURCE] + [d.resolve() / SOURCE for d in opts.other]
+    with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc each
+        paths = list(pool.map(lambda src: _build.build(str(src)), sources))
+    libs = {name: load(path) for name, path in zip(["this"] + others, paths)}
+    order = others + ["this", "this"] + others[::-1]
+    wrong = set()
+    torch.backends.cudnn.allow_tf32 = False       # the plain version in f32
+    results = {}
+    for i, (block, shape) in enumerate(K4_BLOCKS.items()):
+        *dims, dil = shape
+        c0 = dims[1]
+        args = dense_block_case(np.random.default_rng(10 + i), *dims, dev)
+        ref = kernels.dense_block_eval_plain(*args, dilation=dil)
+        flop, nbytes = kernels.dense_block_work(*dims)
+        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16)
+        for name, lib in libs.items():
+            got = run(lib, *args, dil)
+            max_rel, mean_rel, _ = rel_err(got[:, c0:], ref[:, c0:])
+            ok = torch.equal(got[:, :c0], args[0]) and \
+                max_rel <= K4_MAX_REL and mean_rel <= K4_MEAN_REL
+            print(f"{block} {name}: max|err|/max|ref| {max_rel:.3e}, "
+                  f"mean|err|/mean|ref| {mean_rel:.3e}: "
+                  f"{'agrees' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                wrong.add(name)
+        del got, ref
+        times = {name: [] for name in libs}
+        for name in order:
+            lib = libs[name]
+            times[name].append(time_ms(lambda: run(lib, *args, dil),
+                                       opts.reps, flush))
+        for name, lib in libs.items():
+            split = split_ms(lambda: run(lib, *args, dil))
+            ms = float(np.median(times[name]))
+            results[f"{block} {name}"] = dict(ms=times[name], split=split,
+                                              bound_ms=bound_ms,
+                                              agrees=name not in wrong)
+            mark = " (DISAGREES)" if name in wrong else ""
+            print(f"{block} {name}{mark}: "
+                  f"{' / '.join(f'{t:.4f}' for t in times[name])}"
+                  f" ms ({flop / 1e9 / ms:.1f} TFLOP/s, {bound_ms / ms:.1%} "
+                  f"of the {bound_ms:.4f} ms bound by {bound_by}); one call "
+                  f"by kernel (torch.profiler): "
+                  f"{json.dumps({k: round(v, 4) for k, v in split.items()})} "
+                  f"{stamp}", flush=True)
+    print(json.dumps(results))
+    if wrong:
+        raise SystemExit(f"disagree with the plain version: {sorted(wrong)}")
+
+
+if __name__ == "__main__":
+    main()

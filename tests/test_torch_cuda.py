@@ -156,6 +156,15 @@ def _dense_block_case(seed, b, c0, h, w, layers, growth, bw, device):
     (3, 24, 37, 29, 3, 16, 64, 1),       # ragged tiles, cin not a k step
     (1, 40, 9, 11, 2, 24, 96, 3),        # G padded to 32, bw 96
     (8, 128, 64, 220, 12, 32, 128, 1),   # the flagship's block 2
+    # the 3x3's 16 x 16 output tiles: W smaller than a tile; H and W not
+    # multiples of it; dilation 2 and 3 (2 x 2 and 3 x 3 phases, 18 x 18
+    # halos reaching past every edge) on images a few pixels past one halo
+    (1, 16, 5, 3, 2, 8, 32, 1),
+    (2, 32, 35, 19, 2, 16, 64, 1),
+    (1, 24, 38, 37, 2, 16, 32, 2),
+    (2, 8, 57, 59, 2, 24, 96, 3),
+    (2, 64, 24, 40, 2, 64, 64, 1),       # bw 64 with G 64
+    (8, 64, 128, 440, 6, 32, 128, 1),    # the flagship's block 1
 ])
 def test_dense_block_kernel_matches_plain(cuda, b, c0, h, w, layers, growth,
                                           bw, dil):

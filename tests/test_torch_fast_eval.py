@@ -248,6 +248,22 @@ def test_dense_block_wrapper_refuses_bad_input(make, kw):
         kernels.dense_block_eval(*make(), **kw)
 
 
+@pytest.mark.parametrize("dims,gflop,mbytes", [
+    ((8, 64, 128, 440, 6, 32, 128), "298.97", "288.4"),   # block 1
+    ((8, 128, 64, 220, 12, 32, 128), "204.85", "144.2"),  # block 2
+])
+def test_dense_block_work_of_the_flagship(dims, gflop, mbytes):
+    flop, nbytes = kernels.dense_block_work(*dims)
+    assert f"{flop / 1e9:.2f}" == gflop and f"{nbytes / 1e6:.1f}" == mbytes
+
+
+def test_dense_block_work_counts_each_conv():
+    # 2 images x 7 x 9 pixels, cin 16 then 24, 9 taps x 8 channels twice,
+    # bw 32; x0 (16 channels) read and the 32-channel stack written, bf16
+    assert kernels.dense_block_work(2, 16, 7, 9, 2, 8, 32) == (
+        2 * 126 * 32 * (16 + 24 + 9 * 8 * 2), 126 * (16 + 32) * 2)
+
+
 def test_dense_block_wrapper_runs_plain_on_cpu_uncounted():
     args = _block_args()
     before = kernels.dense_block_eval.launches
