@@ -15,11 +15,17 @@ Phases, in order; any failure raises and exits non-zero:
   4. K2      -- greedy_nms against its plain version at [8, 3000, 4] with
                 clustered boxes, padding rows, equal scores and IoUs at and
                 next to the 0.4 threshold: keep masks must be identical;
+                kernel and plain times, the kept rows and the nms_mask /
+                nms_sweep split of a call (torch.profiler);
   5. slice   -- the flagship (DenseNet-121, 36 anchors, acceptance, bf16,
                 batch 8, 512x1760) on uint8 375x1242 frames through
                 make_infer: checked against the CPU path at a small size,
                 then timed; both kernels must launch once per batch; the
-                detections must be finite and write 8 KITTI txt files;
+                detections must be finite and write 8 KITTI txt files.
+                Then K2 again on the flagship's own K2 input (the decoded
+                top-3000 rows of one batch, captured once; the sweep's time
+                grows with the rows kept): identical keep masks, times,
+                split;
   6. K4     -- dense_block_eval against its plain version at the flagship's
                 block-1 [8, 64, 128, 440] -> 256 ch and block-2
                 [8, 128, 64, 220] -> 512 ch shapes, bf16, seeded input and
@@ -264,6 +270,86 @@ def nms_case(rs, b, n):
     scores = -np.sort(-scores, axis=1)
     scores[:, -n // 10:] = 0.0                         # padding rows
     return boxes, scores
+
+
+def k2_flagship_input(model, args):
+    """K2's input on the flagship's main path, captured once: the decoded,
+    score-sorted top-``nms_topN_pre`` rows of one batch through
+    ``make_infer``'s steps (boxes [B, 3000, 4], scores [B, 3000], f32)."""
+    (images_u8, means, stds, rois, rois_3d, p2, p2_inv, scale, bmeans,
+     bstds) = args
+    dcfg = load_config("groomed_nms").detect_config()
+    with torch.inference_mode():
+        images = preprocess_images(images_u8, None, means, stds, target_h=512,
+                                   crop_w=1760, out_dtype=torch.bfloat16)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            outs = rpn_outputs_dict(model(images))
+        sel, sr, sr3 = select_top_pre_nms(outs, rois, rois_3d, dcfg)
+        d, s = decode_detections(sel, sr, sr3, p2, p2_inv, scale, bmeans,
+                                 bstds, dcfg)
+        k = min(dcfg.nms_topN_pre, s.shape[1])
+        return d[:, :k, :4].contiguous(), s[:, :k].contiguous()
+
+
+def split_ms(fn, names, per_call=None, reps=3):
+    """Device ms of a call of ``fn`` in the kernels whose name holds each of
+    ``names`` (``torch.profiler``): the mean kernel time over ``reps`` calls
+    times its launches a call (``per_call``, default 1).  The profiler can
+    deliver a trace's kernels to the next trace: a spin kernel marks this
+    trace's start and kernels before it are left out, and a kernel that was
+    missed leaves the mean as it is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    per_call = per_call or {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    start = max((e.time_range.start for e in kernels
+                 if "spin_kernel" in e.name), default=float("-inf"))
+    out = {}
+    for name in names:
+        us = [e.time_range.elapsed_us() for e in kernels
+              if name in e.name and e.time_range.start >= start]
+        out[name] = sum(us) / len(us) * per_call.get(name, 1) / 1e3 \
+            if us else 0.0
+    return out
+
+
+K2_KERNELS = ("nms_mask", "nms_sweep")
+
+
+def k2_work_bound(b, n):
+    """K2's least time at [b, n], (ms, limiter): each pair of rows tested
+    once (IOU_OPS f32 operations), boxes, scores and keep moved once."""
+    return bound(b * n * (n - 1) // 2 * IOU_OPS, b * n * (16 + 4 + 1),
+                 PEAK_F32)
+
+
+def k2_phase(name, boxes, scores, flush, stamp):
+    """K2 against its plain version on one input: identical keep masks,
+    then kernel and plain times and the mask / sweep split of a call.
+    Returns {ms, plain_ms, kept, split}."""
+    keep = kernels.greedy_nms(boxes, scores, nms_threshold=0.4, shift=1.0)
+    keep_ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4,
+                                        shift=1.0)
+    n_diff = int((keep != keep_ref).sum().item())
+    assert n_diff == 0, f"K2 keep mask differs from the plain version in " \
+                        f"{n_diff} of {keep.numel()} rows ({name})"
+    ms = time_ms(lambda: kernels.greedy_nms(boxes, scores), 50, flush)
+    plain_ms = time_ms(lambda: kernels.greedy_nms_plain(boxes, scores), 3,
+                       flush)
+    split = split_ms(lambda: kernels.greedy_nms(boxes, scores), K2_KERNELS)
+    kept, valid = int(keep.sum()), int((scores > 0).sum())
+    print(f"K2 greedy_nms {name} {list(scores.shape)}: keep masks identical "
+          f"({kept} kept of {valid} valid rows); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; a call by kernel (torch.profiler) "
+          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} {stamp}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, kept=kept, split=split)
 
 
 def wall_ms(fn, reps):
@@ -540,20 +626,9 @@ def main():
 
     # -- 4. K2 --------------------------------------------------------------
     boxes_np, scores_np = nms_case(np.random.default_rng(2), *K2_SHAPE)
-    boxes = torch.from_numpy(boxes_np).to(dev)
-    scores = torch.from_numpy(scores_np).to(dev)
-    keep = kernels.greedy_nms(boxes, scores, nms_threshold=0.4, shift=1.0)
-    keep_ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4,
-                                        shift=1.0)
-    n_diff = int((keep != keep_ref).sum().item())
-    assert n_diff == 0, f"K2 keep mask differs from the plain version in " \
-                        f"{n_diff} of {keep.numel()} rows"
-    k2_ms = time_ms(lambda: kernels.greedy_nms(boxes, scores), 50, flush)
-    k2_plain_ms = time_ms(lambda: kernels.greedy_nms_plain(boxes, scores),
-                          3, flush)
-    print(f"K2 greedy_nms {list(K2_SHAPE)}: keep masks identical "
-          f"({int(keep.sum())} kept of {keep.numel()}); kernel "
-          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms {stamp}", flush=True)
+    k2 = {"synthetic": k2_phase("synthetic", torch.from_numpy(boxes_np).to(dev),
+                                torch.from_numpy(scores_np).to(dev), flush,
+                                stamp)}
 
     # -- 5. slice -----------------------------------------------------------
     # (a) against the CPU path (the kernels' plain versions, which the CPU
@@ -612,6 +687,8 @@ def main():
           f"{wall * 1e3:.1f} ms: {img_s:.2f} img/s, {wall * 1e3 / TIMED:.2f} "
           f"ms/batch; launches {launches}; {int(valid.sum())} valid rows, "
           f"{n_txt} KITTI files {stamp}", flush=True)
+    k2["flagship"] = k2_phase("flagship input", *k2_flagship_input(model, args),
+                              flush, stamp)
 
     # where a batch's device time goes, stage by stage (CUDA events, each
     # stage alone on the outputs of the one before)
@@ -804,15 +881,14 @@ def main():
     # -- 12. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
-    # moves boxes, scores and keep; K3 tests the lower triangle and writes
+    # moves boxes, scores and keep (its times on the main path's own input,
+    # the flagship's decoded rows); K3 tests the lower triangle and writes
     # two f32 [B, N, N] matrices.  No single PyTorch call computes K1-K3's
     # functions (library_ms null); K4's is its cuDNN yardstick (phase 6)
     b, r, per = K1_SHAPE                    # 4 class logits a row
     k1_bound = bound(b * r * 4 * HEAD_OPS, b * r * (per * 2 + 4 + 4),
                      PEAK_F32)
-    b, n = K2_SHAPE
-    k2_bound = bound(b * n * (n - 1) // 2 * IOU_OPS, b * n * (16 + 4 + 1),
-                     PEAK_F32)
+    k2_bound = k2_work_bound(*K2_SHAPE)
     b, n = K3_SHAPES["train"]
     k3_bound = bound(b * n * (n - 1) // 2 * IOU_OPS,
                      b * n * (16 + 1) + 2 * b * n * n * 4, PEAK_F32)
@@ -831,9 +907,10 @@ def main():
         {"name": "greedy_nms", "route": "cuda",
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
-         "launches": launches["greedy_nms"], "max_abs_err": float(n_diff),
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "launches": launches["greedy_nms"], "max_abs_err": 0.0,
+         "ms": k2["flagship"]["ms"], "plain_ms": k2["flagship"]["plain_ms"],
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
         # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
         # block 1 + block 2
         {"name": "dense_block_eval", "route": "cuda",

@@ -19,11 +19,10 @@
 //   kernel (a) conv1x1_bn_relu: M = 128 pixels, N = bw, K = cin in 32-channel
 //     steps through a 4-stage ring of [128 x 32] stack and [bw x 32] w1
 //     tiles.  The layer's mul1/add1 are staged once per block; each thread
-//     applies BN1 + ReLU (f32, rounded to bf16) to the 16-byte chunks it
-//     copied, between the stage's wait and the barrier, so no normalised copy
-//     of the stack is ever written.  The epilogue applies BN2 + ReLU and
-//     writes the bf16 bottleneck h [pixels, bw] through shared memory in
-//     16-byte stores.
+//     applies BN1 + ReLU to the 16-byte chunks it copied, between the
+//     stage's wait and the barrier, so no normalised copy of the stack is
+//     ever written.  The epilogue applies BN2 + ReLU and writes the bf16
+//     bottleneck h [pixels, bw] through shared memory in 16-byte stores.
 //   kernel (b) conv3x3: one block per 16 x 16 output tile of one image (one
 //     dilation phase of it, below), M = 256 pixels, N = G, K = 9 * bw.  The
 //     tile's h halo, 18 x 18 pixels, is staged in shared memory 32 channels at
@@ -50,12 +49,11 @@
 // mma.sync's rate, below wgmma's.  wgmma + TMA and one fused kernel per
 // layer that keeps h on chip are the next steps.
 //
-// Rounding points (the plain version, ops/kernels.py::
-// dense_block_eval_plain, has the same ones): BN1 affine and ReLU in f32 from
-// the bf16 stack and bf16 (mul, add), rounded to bf16; products summed in
-// f32; BN2 affine and ReLU in f32 on the f32 sum, rounded to bf16; the 3x3
-// sums in f32, rounded to bf16.  Built with -fmad=false, so x * mul + add
-// rounds twice, as the plain version's separate PyTorch ops do.
+// Rounding points, the TPU kernel's (the plain version, ops/kernels.py::
+// dense_block_eval_plain, has the same ones): each folded norm is x * mul +
+// add in bf16 as JAX applies it, the product rounded to bf16 and then the
+// sum, then ReLU (bn_relu); the 1x1's products summed in f32 and the sum
+// rounded to bf16 before BN2; the 3x3 sums in f32, rounded to bf16.
 //
 // Sizes: bf16 only; c0 and G multiples of 8, G <= 64, bw a multiple of 32 up
 // to 128 (the wrapper checks; DenseNet-121 has G = 32, bw = 128).
@@ -83,6 +81,20 @@ constexpr int kHalo = kTile + 2;
 constexpr int kHaloPix = kHalo * kHalo;
 constexpr int kKC = 32;
 constexpr int kLdB = kKC + 8;      // shared row stride in bf16 (80 bytes)
+
+// relu(x * m + a) for two channels, rounded as JAX's bf16 ops round: the
+// product of two bf16 values is exact in f32 (8 + 8 significant bits, and
+// -fmad=false keeps it a product of its own), so rounding it gives the bf16
+// product; the f32 sum of two bf16 values is then rounded to bf16, as the
+// plain version's bf16 add does.  ReLU commutes with the rounding.
+__device__ __forceinline__ __nv_bfloat162 bn_relu(float2 x, __nv_bfloat162 m,
+                                                  __nv_bfloat162 a) {
+  const float2 mf = __bfloat1622float2(m), af = __bfloat1622float2(a);
+  const float2 p =
+      __bfloat1622float2(__floats2bfloat162_rn(x.x * mf.x, x.y * mf.y));
+  return __floats2bfloat162_rn(fmaxf(p.x + af.x, 0.0f),
+                               fmaxf(p.y + af.y, 0.0f));
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -226,13 +238,8 @@ conv1x1_bn_relu(const bf16* __restrict__ stack, long long npix, int cmax,
         const __nv_bfloat162* m2 = reinterpret_cast<const __nv_bfloat162*>(&mu);
         const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&au);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float2 x = __bfloat1622float2(x2[q]);
-          const float2 m = __bfloat1622float2(m2[q]);
-          const float2 a = __bfloat1622float2(a2[q]);
-          x2[q] = __floats2bfloat162_rn(fmaxf(x.x * m.x + a.x, 0.0f),
-                                        fmaxf(x.y * m.y + a.y, 0.0f));
-        }
+        for (int q = 0; q < 4; ++q)
+          x2[q] = bn_relu(__bfloat1622float2(x2[q]), m2[q], a2[q]);
         *ptr = u;
       }
     }
@@ -264,9 +271,10 @@ conv1x1_bn_relu(const bf16* __restrict__ stack, long long npix, int cmax,
     }
   }
 
-  // epilogue: BN2 + ReLU in f32, round, stage [128][BN + 8] bf16 in the
-  // ring, then 16-byte stores of h.  Accumulator layout: c[0..1] at row
-  // lane / 4, columns 2 * (lane % 4) + {0, 1}; c[2..3] 8 rows below.
+  // epilogue: the f32 sums rounded to bf16, then BN2 + ReLU (bn_relu),
+  // staged as [128][BN + 8] bf16 in the ring, then 16-byte stores of h.
+  // Accumulator layout: c[0..1] at row lane / 4, columns 2 * (lane % 4) +
+  // {0, 1}; c[2..3] 8 rows below.
   cp_async_wait<0>();
   __syncthreads();
   constexpr int kLdC = BN + 8;
@@ -275,19 +283,17 @@ conv1x1_bn_relu(const bf16* __restrict__ stack, long long npix, int cmax,
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
     const int n = wn * kWN + j * 8 + 2 * t;
-    const float2 m = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(mul2 + n));
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(add2 + n));
+    const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(mul2 + n);
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(add2 + n);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = wm * 32 + i * 16 + g + half * 8;
-        const float c0 = acc[i][j][2 * half], c1 = acc[i][j][2 * half + 1];
+        const float2 c = __bfloat1622float2(__floats2bfloat162_rn(
+            acc[i][j][2 * half], acc[i][j][2 * half + 1]));
         *reinterpret_cast<__nv_bfloat162*>(Cs + r * kLdC + n) =
-            __floats2bfloat162_rn(fmaxf(c0 * m.x + a.x, 0.0f),
-                                  fmaxf(c1 * m.y + a.y, 0.0f));
+            bn_relu(c, m, a);
       }
     }
   }

@@ -12,118 +12,327 @@
 // threshold matches it bit for bit.
 //
 // What bounds it on this card: not bytes (boxes, scores and keep are ~0.2 MB
-// at B=8, N=3000) but the sequential dependence of greedy NMS, row after row.
-// The design takes the O(N^2) IoU work off that chain:
-//   kernel 1 (nms_mask): one 64-thread block per (image, 64-row block,
-//     64-column block >= row block) writes one uint64 per row per column
-//     block, bit c set when the row suppresses column cb*64+c, later columns
-//     only (B x N x ceil(N/64) words, ~9 MB at B=8, N=3000; the words for
-//     column blocks before the row block are never written nor read);
-//   kernel 2 (nms_sweep): one block per image sweeps the rows with the
-//     removed bitset in shared memory.  Per 64-row block one thread resolves
-//     the rows in order from the diagonal words alone, then the block ORs the
-//     kept rows' words into every later column block, loads that do not
-//     depend on one another.  The serial chain is 64 register steps per row
-//     block, not one device-memory round trip per row.
+// at B=8, N=3000) but the sequential dependence of greedy NMS, block after
+// block of rows, and the O(N^2) IoU tests (36 M at B=8, N=3000).  The design
+// takes the tests off that chain and keeps the chain in registers:
+//   kernel 1 (nms_mask): tiles of (image, 64-row block rb, 64-column block
+//     cb >= rb) on a triangular grid (a linear index mapped to (rb, cb): no
+//     tile of the lower triangle is launched), two tiles a 128-thread
+//     block.  It writes one uint64 per row per column block, bit c set when
+//     the row suppresses column cb*64+c, later columns only (words before
+//     the row block are never written nor read).  A thread owns one row of
+//     a tile and runs its 64 tests, against column boxes and areas staged
+//     once in shared memory, without a branch from an approximate quotient;
+//     the few within 2^-16 of the threshold are divided exactly (IEEE)
+//     after, so every bit is the one the plain version's division gives.  A
+//     warp whose 32 rows are all padding writes nothing: none of them is
+//     kept, so the sweep never reads their words.
+//   kernel 2 (nms_sweep): one block per image, one resolver warp and
+//     kUpdaters updater warps, one barrier per row block.  For block rb the
+//     resolver holds the rows' diagonal words mask[row][rb] (two rows a
+//     lane), prefetched by cp.async into a double buffer in shared memory
+//     while block rb - 1 resolved.  The kept rows are the fixed point of
+//     "the candidates that no kept row suppresses", found by warp OR
+//     reductions in (longest chain of suppressions among the candidates) + 1
+//     rounds, with no shared memory, shuffle or barrier in between.  The
+//     resolver ORs the kept rows' next two words, mask[row][rb+1] and
+//     mask[row][rb+2] (prefetched beside the diagonal), into two carries in
+//     registers: the next block waits on nothing else.  The updater warps OR
+//     the kept rows into the words >= rb + 3 of the removed bitset in shared
+//     memory, the loads issued one step and ORed the next, so their L2
+//     latency falls across a barrier instead of on the chain.
 // There is no host copy between the two kernels.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
+using u64 = unsigned long long;
+
 constexpr int kBlock = 64;
-constexpr int kSweepThreads = 128;
+constexpr int kMaskThreads = 128;           // 64 rows x 2 tiles
+constexpr int kUpdaters = 16;               // updater warps of the sweep
+constexpr int kRowsPerUpdater = kBlock / kUpdaters;
+constexpr int kSweepThreads = 32 * (1 + kUpdaters);
+constexpr int kPipeWords = 2;               // 32-word groups an updater lane
+                                            // keeps in flight across a step
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float box_area(float4 b, float shift) {
   return (b.z - b.x + shift) * (b.w - b.y + shift);
 }
 
-// true when box `a` (area aa) and box `c` (area ac) overlap above thr;
-// the operation order of _nms_kernel: (min - max) + shift, clamp at 0,
-// (aa + ac) - inter, clamp at 1e-12, divide, compare
+// The IoU test's operands, in _nms_kernel's order: (min - max) + shift,
+// clamp at 0, the product; (aa + ac) - inter, clamp at 1e-12
+__device__ __forceinline__ void inter_union(float4 a, float aa, float4 c,
+                                            float ac, float shift,
+                                            float& inter, float& uni) {
+  const float iw = fmaxf(fminf(a.z, c.z) - fmaxf(a.x, c.x) + shift, 0.0f);
+  const float ih = fmaxf(fminf(a.w, c.w) - fmaxf(a.y, c.y) + shift, 0.0f);
+  inter = iw * ih;
+  uni = fmaxf(aa + ac - inter, 1e-12f);
+}
+
+// true when box `a` (area aa) and box `c` (area ac) overlap above thr:
+// the IEEE quotient, as the plain version divides
 __device__ __forceinline__ bool overlaps(float4 a, float aa, float4 c,
                                          float ac, float thr, float shift) {
-  float iw = fmaxf(fminf(a.z, c.z) - fmaxf(a.x, c.x) + shift, 0.0f);
-  float ih = fmaxf(fminf(a.w, c.w) - fmaxf(a.y, c.y) + shift, 0.0f);
-  float inter = iw * ih;
-  float uni = fmaxf(aa + ac - inter, 1e-12f);
+  float inter, uni;
+  inter_union(a, aa, c, ac, shift, inter, uni);
   return inter / uni > thr;
 }
 
-__global__ void nms_mask(const float4* __restrict__ boxes,
-                         const float* __restrict__ scores,
-                         unsigned long long* __restrict__ mask, int n,
-                         int nwords, float thr, float shift) {
-  const int cb = blockIdx.x, rb = blockIdx.y, b = blockIdx.z;
-  if (cb < rb) return;
-  __shared__ float4 cbox[kBlock];
-  __shared__ float carea[kBlock];
-  const int t = threadIdx.x;
-  const int col0 = cb * kBlock;
-  const int ncols = min(kBlock, n - col0);
-  if (t < ncols) {
-    float4 c = boxes[(size_t)b * n + col0 + t];
-    cbox[t] = c;
-    carea[t] = box_area(c, shift);
-  }
-  __syncthreads();
-  const int row = rb * kBlock + t;
-  if (row >= n) return;
-  const size_t r = (size_t)b * n + row;
-  unsigned long long bits = 0;
-  if (scores[r] > 0.0f) {
-    const float4 a = boxes[r];
-    const float aa = box_area(a, shift);
-    const int start = (cb == rb) ? t + 1 : 0;
-    for (int c = start; c < ncols; ++c) {
-      if (overlaps(a, aa, cbox[c], carea[c], thr, shift)) bits |= 1ULL << c;
-    }
-  }
-  mask[r * nwords + cb] = bits;
+// 1 / x within 1 ulp (PTX rcp.approx.f32) for a normal x whose reciprocal
+// is normal
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
-__global__ void nms_sweep(const float* __restrict__ scores,
-                          const unsigned long long* __restrict__ mask,
-                          unsigned char* __restrict__ keep, int n,
-                          int nwords) {
-  extern __shared__ unsigned long long removed[];   // nwords
-  __shared__ unsigned long long diag[kBlock];
-  __shared__ bool valid[kBlock];
-  __shared__ unsigned long long kept_bits;
-  const int b = blockIdx.x, t = threadIdx.x;
-  for (int w = t; w < nwords; w += blockDim.x) removed[w] = 0ULL;
+// bits [from, to) of a 32-bit word, the bounds clamped to [0, 32]
+__device__ __forceinline__ uint32_t bit_range(int from, int to) {
+  from = max(from, 0);
+  to = min(to, 32);
+  if (from >= to) return 0u;
+  const uint32_t below_to = to == 32 ? 0xffffffffu : (1u << to) - 1u;
+  return below_to & ~((1u << from) - 1u);
+}
+
+// 4 or 8 bytes global -> shared; when !valid nothing is read and the bytes
+// are zero-filled (src-size 0)
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+                  "l"(src), "n"(Bytes), "r"(valid ? Bytes : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// the "memory" clobber keeps this thread's reads of the landed copies below
+// the wait
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Block (x, b): its two halves take tiles 2x and 2x + 1 of the upper
+// triangle of image b's nwords x nwords tiles (nwords - rb tiles for row
+// block rb); a thread owns one row and all 64 columns of its half's tile.
+__global__ void __launch_bounds__(kMaskThreads)
+nms_mask(const float4* __restrict__ boxes, const float* __restrict__ scores,
+         u64* __restrict__ mask, int n, int nwords, float thr, float shift) {
+  const int t = threadIdx.x;
+  const int i = t % kBlock, half = t / kBlock;
+  const int b = blockIdx.y;
+  // u counts the tiles from the end: the row block with r + 1 tiles (r =
+  // nwords - 1 - rb) starts at u = r (r + 1) / 2.  A half past the last
+  // tile takes row block nwords, which has no rows.
+  const long long tiles = (long long)nwords * (nwords + 1) / 2;
+  const long long tile = 2LL * blockIdx.x + half;
+  const bool live = tile < tiles;
+  const long long u = live ? tiles - 1 - tile : 0;
+  long long r = (long long)((sqrt(8.0 * (double)u + 1.0) - 1.0) * 0.5);
+  while (r * (r + 1) / 2 > u) --r;
+  while ((r + 1) * (r + 2) / 2 <= u) ++r;
+  const int rb = live ? nwords - 1 - (int)r : nwords;
+  const int cb = nwords - 1 - (int)(u - r * (r + 1) / 2);
+
+  __shared__ float4 cbox[2][kBlock];
+  __shared__ float carea[2][kBlock];
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int col0 = cb * kBlock;
+  const int ncols = min(kBlock, n - col0);
+  const float4 c = i < ncols ? boxes[(size_t)b * n + col0 + i] : zero;
+  cbox[half][i] = c;
+  carea[half][i] = box_area(c, shift);
+  const int row = rb * kBlock + i;
+  const size_t rr = (size_t)b * n + row;
+  const bool in = row < n;
+  const bool valid = in && scores[rr] > 0.0f;
+  const float4 a = in ? boxes[rr] : zero;
+  const float aa = box_area(a, shift);
   __syncthreads();
-  for (int rb = 0; rb < nwords; ++rb) {
-    const int row = rb * kBlock + t;
-    const size_t r = (size_t)b * n + row;
-    if (t < kBlock) {
-      const bool v = row < n && scores[r] > 0.0f;
-      valid[t] = v;
-      diag[t] = v ? mask[r * nwords + rb] : 0ULL;
+  // 32 rows of padding (or past n): no word of theirs is ever read
+  if (!__any_sync(kFull, valid)) return;
+  // Each 32 tests without a branch, from an approximate quotient q (within
+  // 2 ulp: rcp_approx and a product).  Where q lies more than `band` (2^-16
+  // relative) from thr it decides as the IEEE quotient would; the rest,
+  // near the threshold, and any union rcp_approx would flush, are marked
+  // unsure and divided exactly after.
+  const float band = fabsf(thr) * 0x1p-16f + 1e-30f;
+  const float above = thr + band, below = thr - band;
+  const float4* cbh = cbox[half];
+  const float* cah = carea[half];
+  u64 word = 0ULL;
+#pragma unroll
+  for (int lo = 0; lo < kBlock; lo += 32) {
+    uint32_t bits = 0u, unsure = 0u;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      float inter, uni;
+      inter_union(a, aa, cbh[lo + k], cah[lo + k], shift, inter, uni);
+      const float q = inter * rcp_approx(uni);
+      bits |= (uint32_t)(q > above) << k;
+      unsure |= (uint32_t)(!(q > above || q < below) || !(uni < 0x1p126f))
+                << k;
     }
-    __syncthreads();
-    if (t == 0) {
-      unsigned long long rem = removed[rb], kept = 0ULL;
-      for (int i = 0; i < kBlock; ++i) {
-        if (valid[i] && !((rem >> i) & 1ULL)) {
-          kept |= 1ULL << i;
-          rem |= diag[i];
+    // later columns of this tile only, none for a padding row
+    const uint32_t cols =
+        valid ? bit_range((cb == rb ? i + 1 : 0) - lo, ncols - lo) : 0u;
+    bits &= cols;
+    unsure &= cols;
+    while (unsure) {
+      const int k = __ffs(unsure) - 1;
+      unsure &= unsure - 1u;
+      const uint32_t bit = 1u << k;
+      bits = overlaps(a, aa, cbh[lo + k], cah[lo + k], thr, shift)
+                 ? bits | bit : bits & ~bit;
+    }
+    word |= (u64)bits << lo;
+  }
+  if (in) mask[rr * nwords + cb] = word;
+}
+
+// OR of a 64-bit value over the warp (the intrinsic is 32-bit)
+__device__ __forceinline__ u64 warp_or(u64 v) {
+  return (u64)__reduce_or_sync(kFull, (uint32_t)v) |
+         ((u64)__reduce_or_sync(kFull, (uint32_t)(v >> 32)) << 32);
+}
+
+// the words of this lane's two rows (lane, lane + 32) that `rows` keeps
+__device__ __forceinline__ u64 own_words(u64 rows, int lane, u64 w0, u64 w1) {
+  return (((rows >> lane) & 1ULL) ? w0 : 0ULL) |
+         (((rows >> (lane + 32)) & 1ULL) ? w1 : 0ULL);
+}
+
+// removed[w] |= v as two 32-bit ORs (a 64-bit OR on shared memory is a
+// compare-and-swap loop); v is 0 for a word past the end
+__device__ __forceinline__ void or_word(u64* removed, int w, u64 v) {
+  uint32_t* half = reinterpret_cast<uint32_t*>(removed + w);
+  if ((uint32_t)v) atomicOr(half, (uint32_t)v);
+  if (v >> 32) atomicOr(half + 1, (uint32_t)(v >> 32));
+}
+
+// Step rb decides row block rb.  The resolver ORs its kept rows' words
+// into words rb + 1 and rb + 2 itself (carries in registers, from the
+// super-diagonal words it prefetched); the updaters OR them into the words
+// >= rb + 3 of `removed`, issuing the loads at step rb + 1 and ORing what
+// landed at step rb + 2, so no step waits on L2 for them, and the word a
+// step reads was complete a barrier earlier.
+__global__ void __launch_bounds__(kSweepThreads)
+nms_sweep(const float* __restrict__ scores, const u64* __restrict__ mask,
+          unsigned char* __restrict__ keep, int n, int nwords) {
+  extern __shared__ u64 removed[];             // nwords
+  __shared__ u64 sdiag[2][kBlock], ssup1[2][kBlock], ssup2[2][kBlock];
+  __shared__ float sscore[2][kBlock];
+  __shared__ u64 skept[2];
+  const int b = blockIdx.x, t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const u64* m = mask + (size_t)b * n * nwords;
+  const float* s = scores + (size_t)b * n;
+  unsigned char* k = keep + (size_t)b * n;
+  for (int w = t; w < nwords; w += blockDim.x) removed[w] = 0ULL;
+
+  // resolver: rows lane and lane + 32 of row block rb into buffer rb & 1
+  auto prefetch = [&](int rb) {
+    const int buf = rb & 1;
+    for (int q = 0; q < 2; ++q) {
+      const int i = lane + 32 * q;
+      const int row = rb * kBlock + i;
+      const bool in = row < n;
+      const bool sup1 = in && rb + 1 < nwords, sup2 = in && rb + 2 < nwords;
+      const size_t at = (size_t)row * nwords + rb;
+      cp_async<8>(&sdiag[buf][i], in ? m + at : m, in);
+      cp_async<8>(&ssup1[buf][i], sup1 ? m + at + 1 : m, sup1);
+      cp_async<8>(&ssup2[buf][i], sup2 ? m + at + 2 : m, sup2);
+      cp_async<4>(&sscore[buf][i], in ? s + row : s, in);
+    }
+    cp_async_commit();
+  };
+  // resolver: the kept rows of earlier blocks into words rb and rb + 1
+  u64 carry1 = 0ULL, carry2 = 0ULL;
+  // updater: loads in flight, rows x words rb + 2 + lane + 32 q
+  u64 pend[kRowsPerUpdater][kPipeWords];
+#pragma unroll
+  for (int j = 0; j < kRowsPerUpdater; ++j)
+#pragma unroll
+    for (int q = 0; q < kPipeWords; ++q) pend[j][q] = 0ULL;
+  if (warp == 0) prefetch(0);
+  __syncthreads();
+
+  for (int rb = 0; rb < nwords; ++rb) {
+    if (warp == 0) {
+      if (rb + 1 < nwords) prefetch(rb + 1);
+      else cp_async_commit();                  // keep one group per block
+      cp_async_wait1();                        // this lane's block rb landed
+      const int buf = rb & 1;
+      const u64 d0 = sdiag[buf][lane], d1 = sdiag[buf][lane + 32];
+      // zero-filled scores past n make those rows padding
+      const u64 valid =
+          (u64)__ballot_sync(kFull, sscore[buf][lane] > 0.0f) |
+          ((u64)__ballot_sync(kFull, sscore[buf][lane + 32] > 0.0f) << 32);
+      const u64 cand = valid & ~(removed[rb] | carry1);
+      // the kept rows are the fixed point of "a candidate no kept row
+      // suppresses": row i's status is final once every earlier row's is,
+      // so from any start the iteration ends after the longest chain of
+      // suppressions among the candidates, plus one
+      u64 kept = cand;
+      for (;;) {
+        const u64 next = cand & ~warp_or(own_words(kept, lane, d0, d1));
+        if (next == kept) break;
+        kept = next;
+      }
+      const int row = rb * kBlock + lane;
+      if (row < n) k[row] = (unsigned char)((kept >> lane) & 1ULL);
+      if (row + 32 < n)
+        k[row + 32] = (unsigned char)((kept >> (lane + 32)) & 1ULL);
+      carry1 = carry2 | warp_or(own_words(kept, lane, ssup1[buf][lane],
+                                          ssup1[buf][lane + 32]));
+      carry2 = warp_or(own_words(kept, lane, ssup2[buf][lane],
+                                 ssup2[buf][lane + 32]));
+      if (lane == 0) skept[buf] = kept;
+    } else {
+      // updater warp u owns rows u * kRowsPerUpdater.. of a block, a lane
+      // one word in 32.  First what landed: block rb - 2 into words >= rb + 1
+      const int u = warp - 1;
+#pragma unroll
+      for (int q = 0; q < kPipeWords; ++q) {
+        u64 acc = 0ULL;
+#pragma unroll
+        for (int j = 0; j < kRowsPerUpdater; ++j) acc |= pend[j][q];
+        or_word(removed, rb + 1 + lane + 32 * q, acc);
+      }
+      // then block rb - 1 into words >= rb + 2: the first 32 kPipeWords
+      // loaded now and ORed next step, any further ones at once
+      const u64 kept =
+          rb > 0 ? skept[(rb - 1) & 1] >> (u * kRowsPerUpdater) : 0ULL;
+      const u64* rows =
+          m + ((size_t)(rb - 1) * kBlock + u * kRowsPerUpdater) * nwords;
+#pragma unroll
+      for (int q = 0; q < kPipeWords; ++q) {
+        const int w = rb + 2 + lane + 32 * q;
+#pragma unroll
+        for (int j = 0; j < kRowsPerUpdater; ++j)
+          pend[j][q] = ((kept >> j) & 1ULL) && w < nwords
+                           ? rows[(size_t)j * nwords + w] : 0ULL;
+      }
+      if (kept & ((1ULL << kRowsPerUpdater) - 1)) {
+        for (int w = rb + 2 + 32 * kPipeWords + lane; w < nwords; w += 32) {
+          u64 acc = 0ULL;
+#pragma unroll
+          for (int j = 0; j < kRowsPerUpdater; ++j)
+            if ((kept >> j) & 1ULL) acc |= rows[(size_t)j * nwords + w];
+          or_word(removed, w, acc);
         }
       }
-      kept_bits = kept;
     }
-    __syncthreads();
-    const unsigned long long kept = kept_bits;
-    if (t < kBlock && row < n) keep[r] = (unsigned char)((kept >> t) & 1ULL);
-    const size_t row0 = (size_t)b * n + (size_t)rb * kBlock;
-    for (int w = rb + 1 + t; w < nwords; w += blockDim.x) {
-      unsigned long long acc = removed[w];
-      for (unsigned long long k = kept; k; k &= k - 1) {
-        acc |= mask[(row0 + __ffsll((long long)k) - 1) * nwords + w];
-      }
-      removed[w] = acc;
-    }
+    // the resolver's kept bits out, the updaters' words >= rb + 1 in
     __syncthreads();
   }
 }
@@ -132,21 +341,29 @@ __global__ void nms_sweep(const float* __restrict__ scores,
 
 // boxes [B, N, 4] f32, scores [B, N] f32, mask scratch [B, N, nwords] u64,
 // keep [B, N] u8 (0/1); all contiguous on the current device.  Launches on
-// `stream` and returns cudaGetLastError() as an int.
+// `stream` and returns cudaGetLastError() as an int (cudaErrorInvalidValue
+// for a size the grids cannot hold).
 extern "C" int greedy_nms(const void* boxes, const void* scores, void* mask,
                           void* keep, int batch, int n, float thr,
                           float shift, void* stream) {
   if (batch == 0 || n == 0) return 0;
   const int nwords = (n + kBlock - 1) / kBlock;
+  // two tiles of the upper triangle a block
+  const long long blocks = ((long long)nwords * (nwords + 1) / 2 + 1) / 2;
+  if (blocks > 0x7fffffffLL || batch > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nms_mask<<<dim3(nwords, nwords, batch), kBlock, 0, s>>>(
+  nms_mask<<<dim3((unsigned)blocks, batch), kMaskThreads, 0, s>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(scores),
-      static_cast<unsigned long long*>(mask), n, nwords, thr, shift);
+      static_cast<u64*>(mask), n, nwords, thr, shift);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  nms_sweep<<<batch, kSweepThreads, nwords * sizeof(unsigned long long), s>>>(
-      static_cast<const float*>(scores),
-      static_cast<const unsigned long long*>(mask),
+  const size_t smem = nwords * sizeof(u64);
+  err = cudaFuncSetAttribute(nms_sweep,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  nms_sweep<<<batch, kSweepThreads, smem, s>>>(
+      static_cast<const float*>(scores), static_cast<const u64*>(mask),
       static_cast<unsigned char*>(keep), n, nwords);
   return (int)cudaGetLastError();
 }

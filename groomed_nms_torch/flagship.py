@@ -20,7 +20,8 @@ from .anchors import generate_anchor_templates, locate_anchors
 from .config import load_config
 from .eval.tester import make_infer
 from .losses.rpn_3d import UncertaintyState
-from .models.fast_eval import FastEvalRPN3D
+from .models.fast_eval import (KERNEL_BLOCKS, FastEvalRPN3D,
+                                 check_kernel_dtype)
 from .models.rpn_3d import RPN3D
 from .training.schedules import build_lr_schedule
 from .training.trainer import (TrainState, build_optimizer, fuse_preprocess,
@@ -70,7 +71,9 @@ def build_flagship(batch=8, height=512, width=1760, device="cuda",
     ``seed``, the frames from numpy ``default_rng(seed)``.  ``engine``
     "rpn3d" serves the ``RPN3D`` module under autocast; "fast_eval" serves
     the weight-folded ``FastEvalRPN3D`` built from it once, in
-    ``compute_dtype`` (f32 when None), with K4 running dense blocks 1-2.
+    ``compute_dtype`` (f32 when None), with K4 running dense blocks 1-2;
+    on a CUDA device it takes bf16 only (K4's dtype) and raises
+    ``ValueError`` at once for any other.
     ``differentiable_nms`` sets the config's
     ``use_differentiable_nms_at_test``: GrooMeD-NMS (K3) replaces greedy
     NMS (K2).
@@ -79,6 +82,9 @@ def build_flagship(batch=8, height=512, width=1760, device="cuda",
         raise ValueError(f"engine must be 'rpn3d' or 'fast_eval', got "
                          f"{engine!r}")
     device = torch.device(device)
+    if engine == "fast_eval":
+        check_kernel_dtype(device, compute_dtype or torch.float32,
+                           KERNEL_BLOCKS)
     ecfg = dataclasses.replace(load_config("groomed_nms"),
                                use_differentiable_nms_at_test=differentiable_nms)
     model = RPN3D(ecfg.rpn_config(NUM_ANCHORS))

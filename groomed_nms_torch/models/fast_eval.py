@@ -13,11 +13,14 @@ port ``RPN3D`` (``FastEvalRPN3D(model, dtype)``), it holds:
 
 ``FastEvalBackbone.forward`` is JAX ``backbone_eval`` and
 ``FastEvalRPN3D.forward`` is JAX ``rpn_eval``: the same function as
-``RPN3D.forward`` in eval mode up to rounding (the folded BatchNorm is
-applied in the compute dtype, as JAX does).  Its output is the port's
-``RPNOutputs``, so ``eval/tester.py::make_infer`` serves it unchanged.  The
-stem is the plain 7x7/s2 conv: JAX's TPU-only space-to-depth rewrite of it
-is the same function and is left out.
+``RPN3D.forward`` in eval mode up to rounding.  It rounds where JAX does:
+each folded BatchNorm is ``x * mul + add`` in the compute dtype, product
+then sum rounded, and the transitions' 2x2 pool sums its window in XLA's
+order.  On a CUDA device K4 takes bf16 only, so an engine there with
+kernel blocks refuses any other dtype (``check_kernel_dtype``).  Its output
+is the port's ``RPNOutputs``, so ``eval/tester.py::make_infer`` serves it
+unchanged.  The stem is the plain 7x7/s2 conv: JAX's TPU-only
+space-to-depth rewrite of it is the same function and is left out.
 
 This engine is not the ``fast_eval`` config key, which is the KITTI
 evaluator's verbose-grid switch.
@@ -67,13 +70,29 @@ def pack_dense_block(layers: list[DenseLayer], c0: int, dtype):
     return mul1, add1, w1, mul2, add2, w2
 
 
+KERNEL_BLOCKS = (0, 1)         # the dense blocks K4 runs by default
+
+
+def check_kernel_dtype(device, dtype, kernel_blocks):
+    """Refuse an engine its kernel cannot serve: on a CUDA device K4 takes
+    bf16 only, so an engine there with any ``kernel_blocks`` must compute
+    in bf16.  (No other path stands in for K4: an f32 engine on the card
+    would raise at its first batch.)"""
+    if torch.device(device).type == "cuda" and kernel_blocks and \
+            dtype != torch.bfloat16:
+        raise ValueError(
+            f"fast_eval on {device} runs dense blocks {tuple(kernel_blocks)} "
+            f"with K4, which takes bf16 only; got compute dtype {dtype}")
+
+
 def _frozen(weight, dtype):
     """A conv kernel of the engine: a copy in ``dtype``, off the graph."""
     return weight.detach().to(dtype, copy=True)
 
 
 class _FoldedNorm(nn.Module):
-    """Folded BatchNorm ``x * mul + add`` (one rounding), optional ReLU."""
+    """Folded BatchNorm ``x * mul + add``, optional ReLU, rounded as JAX
+    rounds it in the compute dtype: the product, then the sum."""
 
     def __init__(self, bn, dtype, relu=True):
         super().__init__()
@@ -83,8 +102,20 @@ class _FoldedNorm(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        y = torch.addcmul(self.add, x, self.mul)
+        y = (x * self.mul).add_(self.add)
         return y.relu_() if self.relu else y
+
+
+def _avg_pool_2x2(x):
+    """2x2/s2 average pool summed as flax's ``avg_pool`` sums in bf16:
+    XLA's ``reduce_window`` on the CPU adds the window in row-major order,
+    ``((a + b) + c) + d``, rounding after each add, then divides by 4.
+    ``F.avg_pool2d`` rounds once.  An odd last row or column is dropped, as
+    by both (VALID pooling)."""
+    h, w = x.shape[-2] // 2 * 2, x.shape[-1] // 2 * 2
+    x = x[..., :h, :w]
+    s = x[..., 0::2, 0::2] + x[..., 0::2, 1::2]
+    return s.add_(x[..., 1::2, 0::2]).add_(x[..., 1::2, 1::2]).div_(4)
 
 
 class KernelDenseBlock(nn.Module):
@@ -147,7 +178,7 @@ class _FoldedTransition(nn.Module):
     def forward(self, x):
         x = self.norm(x)
         if self.pool:
-            x = F.avg_pool2d(x, 2, 2)
+            x = _avg_pool_2x2(x)
         return F.conv2d(x, self.w)
 
 
@@ -160,8 +191,9 @@ class FastEvalBackbone(nn.Module):
     """
 
     def __init__(self, backbone: DenseNetBackbone, dtype=torch.bfloat16,
-                 kernel_blocks=(0, 1)):
+                 kernel_blocks=KERNEL_BLOCKS):
         super().__init__()
+        check_kernel_dtype(backbone.conv0.weight.device, dtype, kernel_blocks)
         cfg = backbone.config
         self.register_buffer("conv0", _frozen(backbone.conv0.weight, dtype))
         self.norm0 = _FoldedNorm(backbone.norm0, dtype)
@@ -203,7 +235,7 @@ class FastEvalRPN3D(nn.Module):
     forward = RPN3D.forward
 
     def __init__(self, model: RPN3D, dtype=torch.bfloat16,
-                 kernel_blocks=(0, 1)):
+                 kernel_blocks=KERNEL_BLOCKS):
         super().__init__()
         self.config = model.config
         self.backbone = FastEvalBackbone(model.backbone, dtype, kernel_blocks)

@@ -40,8 +40,9 @@ from . import _build
 _HEAD_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 _SCORE_BLOCK = 1024          # head rows per Triton program
 _NMS_BLOCK = 64              # rows / columns per uint64 mask word
-# the sweep's removed bitset (one word per 64 rows) and its 584 bytes of
-# static shared memory stay under the 48 KB a block gets without opting in
+# the sweep keeps one removed word per 64 rows in shared memory (48 KB at
+# this N, far below the 227 KB a block may opt into); the mask scratch is
+# already 18 GB an image here
 _NMS_MAX_N = 64 * 6000
 _IOU_TILE = 32               # K3: output tile edge (csrc/iou_prune.cu)
 
@@ -329,26 +330,27 @@ _BLOCK_DTYPES = (torch.bfloat16, torch.float32)
 
 def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
                            dilation=1):
-    """K4's function in PyTorch: a concat chain with the kernel's rounding
-    points.  The products are taken in f32 from operands rounded to
-    ``x0.dtype`` (on a CUDA card, turn TF32 off before comparing), each
-    (mul, add) and ReLU in f32, and every layer's ``h`` and new channels
-    rounded to ``x0.dtype``.  Arguments as ``dense_block_eval``."""
+    """K4's function in PyTorch: a concat chain with the rounding points of
+    the TPU kernel.  Each folded norm is ``x * mul + add`` in ``x0.dtype``
+    as JAX applies it: the product rounded, then the sum rounded, then ReLU.
+    The convolutions' products are taken in f32 from operands in
+    ``x0.dtype`` (on a CUDA card, turn TF32 off before comparing), and the
+    1x1's f32 sum, ``h`` and the new channels are rounded to ``x0.dtype``
+    (nothing to round in f32).  Arguments as ``dense_block_eval``."""
     dt = x0.dtype
     layers, bw, _ = w1.shape
     growth = w2.shape[1]
     c0 = x0.shape[1]
 
     def affine_relu(x, mul, add):
-        y = x.float() * mul.float()[:, None, None] + add.float()[:, None, None]
-        return y.clamp_min(0.0).to(dt)
+        return (x * mul[:, None, None] + add[:, None, None]).clamp_min(0.0)
 
     stack = x0
     for l in range(layers):
         cin = c0 + l * growth
         y = affine_relu(stack, mul1[l, :cin], add1[l, :cin])
         k1 = w1[l, :, :cin, None, None].float()
-        h = affine_relu(F.conv2d(y.float(), k1), mul2[l], add2[l])
+        h = affine_relu(F.conv2d(y.float(), k1).to(dt), mul2[l], add2[l])
         k2 = w2[l].float().reshape(growth, 3, 3, bw).permute(0, 3, 1, 2)
         out = F.conv2d(h.float(), k2, padding=dilation, dilation=dilation)
         stack = torch.cat([stack, out.to(dt)], dim=1)

@@ -10,8 +10,8 @@ Builds ``groomed_nms_torch/csrc/dense_block.cu`` of this checkout and, with
 two kernel blocks (``chip_smoke.K4_BLOCKS``) it checks each library against
 ``dense_block_eval_plain`` with chip_smoke.py's tolerances, times them in
 the order others, this, this, others reversed (median device ms of
-``--reps`` calls, L2 flushed before each), and sums the device time of one
-call's kernels by name with ``torch.profiler``.  Prints one line per
+``--reps`` calls, L2 flushed before each), and sums the device time of a
+call's kernels by name (``chip_smoke.split_ms``).  Prints one line per
 reading, each with the card's name and power limit, then one JSON object.
 A library that disagrees is still timed, marked so (a variant with a part
 switched off, to see what that part costs), and makes the exit code 1.
@@ -27,13 +27,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (K4_BLOCKS, K4_MAX_REL, K4_MEAN_REL, PEAK_BF16,  # noqa: E402
-                        bound, card_line, dense_block_case, rel_err, time_ms)
+                        bound, card_line, dense_block_case, rel_err,
+                        split_ms, time_ms)
 from groomed_nms_torch.ops import _build, kernels  # noqa: E402
 
 SOURCE = Path("groomed_nms_torch/csrc/dense_block.cu")
@@ -66,22 +66,6 @@ def run(lib, x0, mul1, add1, w1, mul2, add2, w2, dilation):
     if err != 0:
         raise RuntimeError(f"dense_block_eval failed: CUDA error {err}")
     return stack
-
-
-def split_ms(fn):
-    """Device ms of one call of ``fn``, summed per kernel name."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(KERNEL_NAMES, 0.0)
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        for name in KERNEL_NAMES:
-            if name in e.key:
-                out[name] += us / 1e3
-    return out
 
 
 def main():
@@ -128,7 +112,8 @@ def main():
             times[name].append(time_ms(lambda: run(lib, *args, dil),
                                        opts.reps, flush))
         for name, lib in libs.items():
-            split = split_ms(lambda: run(lib, *args, dil))
+            split = split_ms(lambda: run(lib, *args, dil), KERNEL_NAMES,
+                             dict.fromkeys(KERNEL_NAMES, dims[4]))
             ms = float(np.median(times[name]))
             results[f"{block} {name}"] = dict(ms=times[name], split=split,
                                               bound_ms=bound_ms,
@@ -137,8 +122,8 @@ def main():
             print(f"{block} {name}{mark}: "
                   f"{' / '.join(f'{t:.4f}' for t in times[name])}"
                   f" ms ({flop / 1e9 / ms:.1f} TFLOP/s, {bound_ms / ms:.1%} "
-                  f"of the {bound_ms:.4f} ms bound by {bound_by}); one call "
-                  f"by kernel (torch.profiler): "
+                  f"of the {bound_ms:.4f} ms bound by {bound_by}); a call by "
+                  f"kernel (torch.profiler): "
                   f"{json.dumps({k: round(v, 4) for k, v in split.items()})} "
                   f"{stamp}", flush=True)
     print(json.dumps(results))

@@ -15,7 +15,7 @@ import torch
 
 from groomed_nms_torch.anchors import locate_anchors
 from groomed_nms_torch.eval.tester import make_infer
-from groomed_nms_torch.flagship import build_flagship_train
+from groomed_nms_torch.flagship import build_flagship, build_flagship_train
 from groomed_nms_torch.inference import DetectConfig
 from groomed_nms_torch.models.densenet import tiny_densenet_config
 from groomed_nms_torch.models.fast_eval import FastEvalRPN3D
@@ -73,7 +73,7 @@ def _nms_case(rs, b, n):
 
 
 @pytest.mark.parametrize("b,n", [(8, 3000), (1, 1), (2, 63), (2, 64), (3, 65),
-                                 (4, 700)])
+                                 (4, 700), (2, 3008), (1, 4096), (1, 6000)])
 def test_greedy_nms_kernel_matches_plain(cuda, b, n):
     boxes, scores = _nms_case(np.random.default_rng(n), b, n)
     boxes, scores = torch.from_numpy(boxes).to(cuda), \
@@ -85,6 +85,48 @@ def test_greedy_nms_kernel_matches_plain(cuda, b, n):
                                    shift=1.0)
     torch.cuda.synchronize()
     assert torch.equal(keep, ref)
+
+
+def _nms_edge_case(name, b, n):
+    """Boxes and scores of one edge case of the sweep, [b, n]."""
+    rs = np.random.default_rng(n)
+    boxes, scores = _nms_case(rs, b, n)
+    if name == "all_padding":
+        scores[:] = 0.0
+    elif name == "interleaved_padding":          # padding anywhere
+        scores[:, ::3] = 0.0
+    elif name == "padding_row_blocks":           # whole 64-row blocks
+        scores[:, :128] = 0.0
+        scores[:, 192:256] = 0.0
+    elif name == "disjoint":                     # every row kept
+        i = np.arange(n, dtype=np.float32)
+        boxes[:] = np.stack([i * 10, i * 0, i * 10 + 5, i * 0 + 5], -1)
+        scores[:] = np.linspace(1.0, 0.5, n, dtype=np.float32)
+    elif name == "identical":                    # the first suppresses all
+        boxes[:] = boxes[:, :1]
+        scores[:] = np.linspace(1.0, 0.5, n, dtype=np.float32)
+    return boxes, scores
+
+
+@pytest.mark.parametrize("name", ["all_padding", "interleaved_padding",
+                                  "padding_row_blocks", "disjoint",
+                                  "identical"])
+@pytest.mark.parametrize("b,n", [(3, 300), (2, 64), (1, 4100)])
+def test_greedy_nms_kernel_edge_cases(cuda, name, b, n):
+    boxes, scores = (torch.from_numpy(x).to(cuda)
+                     for x in _nms_edge_case(name, b, n))
+    keep = kernels.greedy_nms(boxes, scores, nms_threshold=0.4, shift=1.0)
+    ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4,
+                                   shift=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, ref)
+    kept = ref.sum(1)
+    if name == "all_padding":
+        assert not kept.any()
+    elif name == "disjoint":
+        assert bool((kept == n).all())
+    elif name == "identical":
+        assert bool((kept == 1).all()) and bool(ref[:, 0].all())
 
 
 def test_greedy_nms_kernel_refuses_misaligned_boxes(cuda):
@@ -240,6 +282,23 @@ def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
     assert err.mean() <= 0.02 * f_ref.abs().mean()
     torch.testing.assert_close(got.accept_prob.cpu(), ref.accept_prob,
                                rtol=0, atol=0.02)
+
+
+def test_f32_fast_eval_on_cuda_is_refused_at_build(cuda):
+    """K4 takes bf16 only: an f32 fast_eval engine on the card raises when
+    it is built, not at its first batch; without kernel blocks it builds."""
+    with pytest.raises(ValueError, match="bf16 only"):
+        build_flagship(device=cuda, engine="fast_eval", compute_dtype=None)
+    cfg = RPNConfig(num_anchors=6, prop_features=64,
+                    backbone=tiny_densenet_config())
+    model = init_weights(RPN3D(cfg), torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    with pytest.raises(ValueError, match="bf16 only"):
+        FastEvalRPN3D(model, torch.float32)
+    engine = FastEvalRPN3D(model, torch.float32, kernel_blocks=())
+    with torch.no_grad():
+        out = engine(torch.randn((1, 3, 64, 128), device=cuda))
+    assert out.fused_raw.dtype == torch.float32
 
 
 @pytest.mark.parametrize("method", ["linear", "sigmoidal", "soft_nms"])
