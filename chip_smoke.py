@@ -5,10 +5,11 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the greedy-NMS, dense-block and IoU/prune
-                libraries (csrc/greedy_nms.cu, csrc/dense_block.cu,
-                csrc/iou_prune.cu), all at once, into
-                build/groomed_nms_torch/ and prints their -Xptxas -v logs;
+  2. build   -- nvcc builds the greedy-NMS, dense-block, IoU/prune and
+                grouping libraries (csrc/greedy_nms.cu, csrc/dense_block.cu,
+                csrc/iou_prune.cu, csrc/group_leaders.cu), all at once,
+                into build/groomed_nms_torch/ and prints their -Xptxas -v
+                logs;
                 Triton compiles the head-score kernel on its first launch;
   3. K1      -- fused_head_scores against its plain version at the main-path
                 shape [8, 126720, 18] bf16, with and without acceptance;
@@ -40,17 +41,30 @@ Phases, in order; any failure raises and exits non-zero:
                 timed: K4 twice per batch, K1 and K2 once; trunk breakdown;
   8. K3     -- fused_iou_prune against its plain version at the training
                 and test-time shape [8, 512, 4] (clustered boxes, padding
-                rows) for the three pruning methods, and at the analysis
-                shape [1, 1000, 4]; kernel and plain times, Gpairs/s;
-  9. operator -- GrooMeD-NMS (sort, K3, grouping, rescoring) on the card
-                against the CPU path at [8, 512] and [1, 1000]; ms, Mboxes/s;
+                rows) for the three pruning methods, at the analysis shape
+                [1, 1000, 4], at the edge sizes K3_EDGE and on boxes whose
+                sizes span 2^-25..2^63 (quotients outside the kernel's
+                fast range, unions at the 1e-12 clamp and past 2^126);
+                kernel and plain times at the two shapes, Gpairs/s, the
+                bound (kernels.iou_prune_work) and the share of it;
+  9. operator -- the grouping kernel (kernels.group_leaders) against its
+                plain version on GROUP_CASES (IoUs with padding holes;
+                asymmetric overlaps with ties at the threshold and NaNs;
+                group sizes -1, 0, 1, 100), timed on the operator's own
+                input at [8, 512] beside its bound; then GrooMeD-NMS (sort,
+                K3, grouping, rescoring) on the card against the CPU path
+                at [8, 512] and [1, 1000]: one K3 and one grouping launch a
+                call, no host synchronisation (torch.cuda sync debug mode
+                "error"), host ms, Mboxes/s and the split by stage;
  10. groomed test -- the flagship through make_infer with GrooMeD-NMS at
-                test time: K3 and K1 once per batch, K2 never; timed;
+                test time: K3, the grouping and K1 once per batch, K2
+                never; timed;
  11. train  -- (a) one step of the flagship train workload with the tiny
                 backbone at 2x64x128 f32 on the card against the CPU path;
                 (b) build_flagship_train
                 at full size (batch 8, 512x1760, bf16 autocast): 3 warm-up
-                and 10 timed steps, K3 once per step, finite loss and
+                and 10 timed steps, K3 and the grouping once per step,
+                finite loss and
                 gradients, parameters and running statistics moved; ms per
                 step, img/s, a stage split and the peak device memory;
  12. the kernels JSON line, then the last line:
@@ -110,6 +124,14 @@ FE_MAX_REL, FE_MEAN_REL, FE_ACCEPT_ATOL = 0.05, 0.02, 0.02
 # CPU path with identical leaders and keep masks
 K3_ATOL, OPERATOR_ATOL = 1e-6, 1e-6
 K3_SHAPES = {"train": (8, 512), "analysis": (1, 1000)}
+# K3's edge sizes (B, N): one box, ragged tiles, N % 4 != 0 (scalar
+# stores), many tiles
+K3_EDGE = ((1, 1), (2, 31), (3, 33), (2, 64), (3, 65), (2, 100), (1, 2048))
+# the grouping kernel: identical to its plain version at each (B, N) and
+# group size
+GROUP_CASES = tuple((b, n) for n in (1, 63, 64, 65, 512, 1000, 4096)
+                    for b in (1, 8))
+GROUP_SIZES = (-1, 0, 1, 100)
 # one train step of the tiny model at 2x64x128 f32 on the card vs the CPU
 # path: stats at rtol 1e-3 (atol 1e-5), parameters within 1e-4 of each
 # tensor's max (convolutions and their gradients summed in other orders).
@@ -121,10 +143,9 @@ TRAIN_RTOL, TRAIN_ATOL, TRAIN_PARAM_REL = 1e-3, 1e-5, 1e-4
 # the H100 SXM's published peaks (dense, 700 W): bf16 tensor-core FLOP/s,
 # f32 FLOP/s outside the tensor cores, device-memory bytes/s
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-# f32 operations of one IoU test of K2 and K3 (min, max, sub, add, clamp for
-# each side, product, union, clamp, divide, compare) and of K1 per logit
-# (exp, sum, max, divide)
-IOU_OPS, HEAD_OPS = 16, 4
+# f32 operations of K1 per logit (exp, sum, max, divide); an IoU test's are
+# kernels.IOU_TEST_OPS
+HEAD_OPS = 4
 
 
 def card_line():
@@ -324,9 +345,10 @@ K2_KERNELS = ("nms_mask", "nms_sweep")
 
 def k2_work_bound(b, n):
     """K2's least time at [b, n], (ms, limiter): each pair of rows tested
-    once (IOU_OPS f32 operations), boxes, scores and keep moved once."""
-    return bound(b * n * (n - 1) // 2 * IOU_OPS, b * n * (16 + 4 + 1),
-                 PEAK_F32)
+    once (kernels.IOU_TEST_OPS f32 operations), boxes, scores and keep
+    moved once."""
+    return bound(b * n * (n - 1) // 2 * kernels.IOU_TEST_OPS,
+                 b * n * (16 + 4 + 1), PEAK_F32)
 
 
 def k2_phase(name, boxes, scores, flush, stamp):
@@ -382,65 +404,225 @@ def k3_case(name, b, n):
     return boxes, -np.sort(-scores, axis=1)
 
 
+def wide_range_boxes(rs, b, n):
+    """[b, n, 4] f32 boxes whose sides span 2^-25..2^63 (log-uniform),
+    nested across scales: K3's quotients outside its fast range (unions at
+    the 1e-12 clamp, past 2^126, tiny ratios) next to ordinary ones."""
+    side = np.exp2(rs.uniform(-25, 63, (b, n, 2)))
+    center = np.exp2(rs.uniform(-25, 63, (b, n, 2))) * rs.uniform(
+        -1, 1, (b, n, 2))
+    return np.concatenate([center - side / 2, center + side / 2],
+                          -1).astype(np.float32)
+
+
+def k3_check(name, boxes, valid):
+    """K3 against its plain version, three methods: IoU and the linear
+    prune identical, the other two within K3_ATOL.  Returns the methods'
+    max |err| of the prune."""
+    errs = {}
+    for method in kernels.PRUNING_METHODS:
+        kw = dict(nms_threshold=0.4, temperature=0.1, pruning_method=method)
+        iou, prune = kernels.fused_iou_prune(boxes, valid, **kw)
+        ref_iou, ref_prune = kernels.fused_iou_prune_plain(boxes, valid, **kw)
+        errs[method] = (prune - ref_prune).abs().max().item()
+        assert torch.equal(iou, ref_iou), \
+            f"K3 IoU differs from its plain version ({name})"
+        assert errs[method] <= (0.0 if method == "linear" else K3_ATOL), \
+            f"K3 {method} prune differs by {errs[method]} ({name})"
+    return errs
+
+
 def k3_phase(dev, flush, stamp):
-    """K3 against its plain version at each of K3_SHAPES, three methods;
-    returns {shape name: {ms, plain_ms, max_abs}}."""
+    """K3 against its plain version at each of K3_SHAPES (timed), the edge
+    sizes and the wide-range boxes; returns {shape name: {ms, plain_ms,
+    max_abs}}."""
     k3 = {}
     for name, (b, n) in K3_SHAPES.items():
         boxes_np, scores_np = k3_case(name, b, n)
         boxes = torch.from_numpy(boxes_np).to(dev)
         valid = torch.from_numpy(scores_np > 0).to(dev)
-        errs = {}
-        for method in kernels.PRUNING_METHODS:
-            kw = dict(nms_threshold=0.4, temperature=0.1,
-                      pruning_method=method)
-            iou, prune = kernels.fused_iou_prune(boxes, valid, **kw)
-            ref_iou, ref_prune = kernels.fused_iou_prune_plain(boxes, valid,
-                                                               **kw)
-            errs[method] = (prune - ref_prune).abs().max().item()
-            assert torch.equal(iou, ref_iou), \
-                f"K3 IoU differs from its plain version ({name})"
-            assert errs[method] <= (0.0 if method == "linear" else K3_ATOL), \
-                f"K3 {method} prune differs by {errs[method]} ({name})"
+        errs = k3_check(name, boxes, valid)
         ms = time_ms(lambda: kernels.fused_iou_prune(boxes, valid), 50, flush)
         plain_ms = time_ms(lambda: kernels.fused_iou_prune_plain(
             boxes, valid), 20, flush)
-        k3[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max(errs.values()))
+        bound_ms, bound_by = bound(*kernels.iou_prune_work(b, n), PEAK_F32)
+        k3[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max(errs.values()),
+                        bound_ms=bound_ms, bound_by=bound_by)
         print(f"K3 fused_iou_prune {name} [{b}, {n}, 4] "
               f"({int(valid.sum())} valid rows): IoU identical, prune "
               f"max|err| {json.dumps(errs)} (linear 0, else atol "
               f"{K3_ATOL:g}); kernel {ms:.4f} ms ({b * n * n / ms / 1e6:.2f} "
-              f"Gpairs/s), plain {plain_ms:.4f} ms "
+              f"Gpairs/s, {bound_ms / ms:.1%} of the {bound_ms:.4f} ms "
+              f"bound by {bound_by}), plain {plain_ms:.4f} ms "
               f"({b * n * n / plain_ms / 1e6:.2f} Gpairs/s) {stamp}",
               flush=True)
+    for b, n in K3_EDGE:
+        boxes_np, scores_np = nms_case(np.random.default_rng(n), b, n)
+        k3_check(f"[{b}, {n}]", torch.from_numpy(boxes_np).to(dev),
+                 torch.from_numpy(scores_np > 0).to(dev))
+    rs = np.random.default_rng(22)
+    boxes = torch.from_numpy(wide_range_boxes(rs, 2, 1000)).to(dev)
+    valid = torch.from_numpy(rs.uniform(size=(2, 1000)) > 0.05).to(dev)
+    k3_check("wide range", boxes, valid)
+    print(f"K3 edge sizes {list(K3_EDGE)} and boxes of sides 2^-25..2^63 at "
+          f"[2, 1000]: IoU and linear prune identical, the other methods "
+          f"within {K3_ATOL:g}", flush=True)
     return k3
 
 
-def operator_phase(dev, stamp):
+GROUP_KERNELS = ("group_bits", "group_sweep")
+
+
+def group_case(b, n, kind, dev, seed):
+    """The grouping's input on ``dev``: m [b, n, n] f32 and valid [b, n].
+    "iou": the IoU of ``nms_case``'s clustered boxes, left unmasked, with
+    its padding rows and a hole every 9th row; "mixed": that IoU scaled by
+    random gains in [0.75, 1.25) (asymmetric), 1% of its entries exactly
+    at the 0.4 threshold and 0.5% NaN."""
+    rs = np.random.default_rng(seed)
+    boxes_np, scores_np = nms_case(rs, b, n)
+    valid_np = scores_np > 0
+    valid_np[:, ::9] = False
+    boxes = torch.from_numpy(boxes_np).to(dev)
+    m = kernels.fused_iou_prune_plain(
+        boxes, torch.ones((b, n), dtype=torch.bool, device=dev))[0]
+    if kind == "mixed":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        m = m * (0.75 + 0.5 * torch.rand(m.shape, generator=g, device=dev))
+        u = torch.rand(m.shape, generator=g, device=dev)
+        m = torch.where(u < 0.01, torch.full_like(m, 0.4), m)
+        m = torch.where(u > 0.995, torch.full_like(m, float("nan")), m)
+    return m.contiguous(), torch.from_numpy(valid_np).to(dev)
+
+
+def group_phase(dev, flush, stamp):
+    """The grouping kernel against its plain version on GROUP_CASES, then
+    timed on the operator's own input (K3's IoU of the sorted "train"
+    rows, [8, 512]).  Returns {ms, plain_ms, bound_ms, bound_by}."""
+    for b, n in GROUP_CASES:
+        for kind in ("iou", "mixed"):
+            m, valid = group_case(b, n, kind, dev, seed=b * n)
+            for gs in GROUP_SIZES:
+                kw = dict(nms_threshold=0.4, group_size=gs)
+                got = kernels.group_leaders(m, valid, **kw)
+                ref = kernels.group_leaders_plain(m, valid, **kw)
+                assert torch.equal(got, ref), \
+                    f"group_leaders differs from its plain version at " \
+                    f"[{b}, {n}] {kind}, group_size {gs}"
+    print(f"group_leaders: identical to its plain version at {len(GROUP_CASES)}"
+          f" (B, N) from [1, 1] to [8, 4096], IoU and asymmetric overlaps "
+          f"(ties at the threshold, NaN), group sizes {list(GROUP_SIZES)}",
+          flush=True)
+    b, n = K3_SHAPES["train"]
+    boxes_np, scores_np = k3_case("train", b, n)
+    valid = torch.from_numpy(scores_np > 0).to(dev)
+    m = kernels.fused_iou_prune(torch.from_numpy(boxes_np).to(dev), valid)[0]
+    kw = dict(nms_threshold=0.4, group_size=100)
+    leader = kernels.group_leaders(m, valid, **kw)
+    leaders = int((leader == torch.arange(n, device=dev)).sum())
+    ms = time_ms(lambda: kernels.group_leaders(m, valid, **kw), 50, flush)
+    plain_ms = time_ms(lambda: kernels.group_leaders_plain(m, valid, **kw),
+                       10, flush)
+    split = split_ms(lambda: kernels.group_leaders(m, valid, **kw),
+                     GROUP_KERNELS)
+    bound_ms, bound_by = bound(*kernels.group_leaders_work(b, n), PEAK_F32)
+    print(f"group_leaders on the operator's input [{b}, {n}] "
+          f"({int(valid.sum())} valid rows, {leaders} leaders): kernel "
+          f"{ms:.4f} ms ({bound_ms / ms:.1%} of the {bound_ms:.4f} ms bound "
+          f"by {bound_by}), plain {plain_ms:.4f} ms; a call by kernel "
+          f"(torch.profiler) "
+          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} {stamp}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def operator_inputs(name, dev):
+    """The operator's input at a K3_SHAPES name: (scores, boxes, valid),
+    the rows unsorted (the operator sorts them, ties by index), on dev."""
+    b, n = K3_SHAPES[name]
+    boxes_np, scores_np = k3_case(name, b, n)
+    perm = np.random.default_rng(21).permutation(n)
+    scores = torch.from_numpy(scores_np[:, perm])
+    return (scores.to(dev), torch.from_numpy(boxes_np[:, perm]).to(dev),
+            (scores > 0).to(dev))
+
+
+def operator_split(scores, boxes, valid, flush, reps=20):
+    """The operator's stages at the shipped config, each run alone on the
+    outputs of the one before: sort (order, sorted rows), K3, the grouping,
+    grouping + rescore (``differentiable_nms_sorted``), unsort, and the
+    whole operator.  Returns {"host": {stage: ms}, "device": {stage: ms}}:
+    host ms of ``reps`` synchronised runs (``wall_ms``) and device ms
+    (``time_ms``, CUDA events)."""
+    from groomed_nms_torch.ops import groomed_nms as gn
+    order = gn._descending(gn._sort_key(scores, valid))
+    v = torch.gather(valid, 1, order)
+    rows = gn._rows(boxes.float(), order).contiguous()
+    s = torch.gather(scores, 1, order)
+    iou, prune = kernels.fused_iou_prune(rows, v)
+    res = gn.differentiable_nms_sorted(s, iou, prune, v)
+
+    def sort():
+        o = gn._descending(gn._sort_key(scores, valid))
+        return (torch.gather(valid, 1, o),
+                gn._rows(boxes.float(), o).contiguous(),
+                torch.gather(scores, 1, o))
+
+    stages = {
+        "sort": sort,
+        "K3": lambda: kernels.fused_iou_prune(rows, v),
+        "grouping": lambda: gn.group_leaders(iou, s, v, 0.4, 100),
+        "grouping + rescore": lambda: gn.differentiable_nms_sorted(
+            s, iou, prune, v),
+        "unsort": lambda: gn._unsort(res, order),
+        "operator": lambda: gn.groomed_nms_boxes(scores, boxes, valid),
+    }
+    return {"host": {k: round(wall_ms(f, reps), 4) for k, f in stages.items()},
+            "device": {k: round(time_ms(f, reps, flush), 4)
+                       for k, f in stages.items()}}
+
+
+def operator_phase(dev, flush, stamp):
     """GrooMeD-NMS of unsorted rows (sort, K3, grouping, rescoring) on the
-    card against the CPU path at each of K3_SHAPES, timed on the host."""
+    card against the CPU path at each of K3_SHAPES: one K3 and one grouping
+    launch a call, no host synchronisation; timed on the host, with the
+    split by stage.  Returns {shape name: {ms, split}}."""
+    out = {}
     for name, (b, n) in K3_SHAPES.items():
-        boxes_np, scores_np = k3_case(name, b, n)
-        # unsorted rows: the operator sorts them (ties broken by index)
-        perm = np.random.default_rng(21).permutation(n)
-        boxes_c = torch.from_numpy(boxes_np[:, perm])
-        scores_c = torch.from_numpy(scores_np[:, perm])
-        valid_c = scores_c > 0
-        ref = groomed_nms_boxes(scores_c, boxes_c, valid_c)
-        args_g = [t.to(dev) for t in (scores_c, boxes_c, valid_c)]
-        got = groomed_nms_boxes(*args_g)
+        args_g = operator_inputs(name, dev)
+        ref = groomed_nms_boxes(*(t.cpu() for t in args_g))
+        groomed_nms_boxes(*args_g)                       # warm
+        torch.cuda.synchronize()
+        kernels.fused_iou_prune.launches = 0
+        kernels.group_leaders.launches = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = groomed_nms_boxes(*args_g)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = {"fused_iou_prune": kernels.fused_iou_prune.launches,
+                    "group_leaders": kernels.group_leaders.launches}
+        assert launches == {"fused_iou_prune": 1, "group_leaders": 1}, \
+            f"expected one K3 and one grouping launch a call, got {launches}"
         same_leader = torch.equal(got.leader.cpu(), ref.leader)
         same_keep = torch.equal(got.keep.cpu(), ref.keep)
         err = (got.rescored.cpu() - ref.rescored).abs().max().item()
         ms = wall_ms(lambda: groomed_nms_boxes(*args_g), 20)
+        split = operator_split(*args_g, flush)
         print(f"operator groomed_nms_boxes {name} [{b}, {n}]: leaders "
               f"identical {same_leader}, keep identical {same_keep} "
               f"({int(ref.keep.sum())} kept, {int((ref.leader >= 0).sum())} "
               f"grouped), rescored max|err| {err:.3e} (atol "
-              f"{OPERATOR_ATOL:g}); {ms:.3f} ms, {b * n / ms / 1e3:.3f} "
-              f"Mboxes/s {stamp}", flush=True)
+              f"{OPERATOR_ATOL:g}); launches {launches}, no host sync "
+              f"(sync debug mode error); {ms:.3f} ms, "
+              f"{b * n / ms / 1e3:.3f} Mboxes/s {stamp}", flush=True)
+        print(f"operator split {name} [{b}, {n}] ms by stage: "
+              f"{json.dumps(split)} {stamp}", flush=True)
         assert same_leader and same_keep and err <= OPERATOR_ATOL, \
             f"the operator on the card disagrees with the CPU path ({name})"
+        out[name] = dict(ms=ms, split=split)
+    return out
 
 
 def groomed_test_phase(stamp):
@@ -453,6 +635,7 @@ def groomed_test_phase(stamp):
     kernels.fused_head_scores.launches = 0
     kernels.greedy_nms.launches = 0
     kernels.fused_iou_prune.launches = 0
+    kernels.group_leaders.launches = 0
     t0 = time.perf_counter()
     for _ in range(TIMED):
         dets, valid = infer(*args)
@@ -460,10 +643,12 @@ def groomed_test_phase(stamp):
     wall = time.perf_counter() - t0
     launches = {"fused_head_scores": kernels.fused_head_scores.launches,
                 "greedy_nms": kernels.greedy_nms.launches,
-                "fused_iou_prune": kernels.fused_iou_prune.launches}
+                "fused_iou_prune": kernels.fused_iou_prune.launches,
+                "group_leaders": kernels.group_leaders.launches}
     assert launches == {"fused_head_scores": TIMED, "greedy_nms": 0,
-                        "fused_iou_prune": TIMED}, \
-        f"expected K1 and K3 once per batch and no K2, got {launches}"
+                        "fused_iou_prune": TIMED, "group_leaders": TIMED}, \
+        f"expected K1, K3 and the grouping once per batch and no K2, got " \
+        f"{launches}"
     dets, valid = dets.cpu(), valid.cpu()
     assert dets.shape == (batch, 40, 17) and torch.isfinite(dets).all(), \
         "non-finite GrooMeD detections"
@@ -477,7 +662,8 @@ def train_phase(stamp):
     """(a) one f32 step of the tiny model at 2x64x128 on the card against
     the CPU path; (b) the
     flagship train step at full size, timed, with a stage split and the
-    peak memory.  Returns K3's launches in the timed steps."""
+    peak memory.  Returns the launches of K3 and the grouping in the timed
+    steps."""
     torch.backends.cudnn.allow_tf32 = False
     small = dict(batch=2, height=64, width=128, src_hw=(48, 96),
                  compute_dtype=None, backbone=tiny_densenet_config())
@@ -525,6 +711,7 @@ def train_phase(stamp):
     before = {k: v.clone() for k, v in state.model.state_dict().items()
               if v.is_floating_point()}
     kernels.fused_iou_prune.launches = 0
+    kernels.group_leaders.launches = 0
     torch.cuda.reset_peak_memory_stats()
     losses = []
     t0 = time.perf_counter()
@@ -533,7 +720,8 @@ def train_phase(stamp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = kernels.fused_iou_prune.launches
+    launches = {"fused_iou_prune": kernels.fused_iou_prune.launches,
+                "group_leaders": kernels.group_leaders.launches}
     losses = torch.stack(losses).cpu()
     grads_ok = all(torch.isfinite(p.grad).all().item()
                    for p in state.model.parameters() if p.grad is not None)
@@ -543,10 +731,11 @@ def train_phase(stamp):
              for kind in ("weight", "running_mean", "running_var")}
     print(f"train (b): {TIMED} steps of batch {n_img} at 512x1760 bf16 in "
           f"{wall * 1e3:.1f} ms: {wall * 1e3 / TIMED:.2f} ms/step, "
-          f"{n_img * TIMED / wall:.2f} img/s; K3 launches {launches}; loss "
+          f"{n_img * TIMED / wall:.2f} img/s; launches {launches}; loss "
           f"{losses[0]:.5f} -> {losses[-1]:.5f}; grads finite {grads_ok}; "
           f"moved {moved}; peak memory {peak_gb:.2f} GB {stamp}", flush=True)
-    assert launches == TIMED, "expected one K3 launch per train step"
+    assert launches == {"fused_iou_prune": TIMED, "group_leaders": TIMED}, \
+        "expected one K3 and one grouping launch per train step"
     assert torch.isfinite(losses).all() and grads_ok, "non-finite training"
     assert all(moved.values()), "a parameter or statistic did not move"
 
@@ -586,12 +775,14 @@ def main():
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("greedy_nms.cu", "dense_block.cu", "iou_prune.cu")
+    sources = ("greedy_nms.cu", "dense_block.cu", "iou_prune.cu",
+               "group_leaders.cu")
     with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source
         libs = list(pool.map(_build.build, sources))
     _build.greedy_nms_lib()
     _build.dense_block_lib()
     _build.iou_prune_lib()
+    _build.group_leaders_lib()
     print(f"build: nvcc {' + '.join(sources)} -> "
           f"{', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -869,12 +1060,14 @@ def main():
           f"{stamp}", flush=True)
 
 
-    # -- 8-11. K3, the operator, GrooMeD-NMS at test time, training ------
+    # -- 8-11. K3, the grouping and the operator, GrooMeD-NMS at test time,
+    # training ---------------------------------------------------------------
     del model, engine, infer, infer_f, args_f, images, outs, bb, x1, x2, \
         k4_inputs, stages, fe_stages
     torch.cuda.empty_cache()
     k3 = k3_phase(dev, flush, stamp)
-    operator_phase(dev, stamp)
+    group = group_phase(dev, flush, stamp)
+    operator_phase(dev, flush, stamp)
     groomed_test_phase(stamp)
     train_launches = train_phase(stamp)
 
@@ -883,15 +1076,13 @@ def main():
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,
     # the flagship's decoded rows); K3 tests the lower triangle and writes
-    # two f32 [B, N, N] matrices.  No single PyTorch call computes K1-K3's
-    # functions (library_ms null); K4's is its cuDNN yardstick (phase 6)
+    # two f32 [B, N, N] matrices; the grouping reads m's strict lower
+    # triangle.  No single PyTorch call computes K1-K3's functions or the
+    # grouping (library_ms null); K4's is its cuDNN yardstick (phase 6)
     b, r, per = K1_SHAPE                    # 4 class logits a row
     k1_bound = bound(b * r * 4 * HEAD_OPS, b * r * (per * 2 + 4 + 4),
                      PEAK_F32)
     k2_bound = k2_work_bound(*K2_SHAPE)
-    b, n = K3_SHAPES["train"]
-    k3_bound = bound(b * n * (n - 1) // 2 * IOU_OPS,
-                     b * n * (16 + 1) + 2 * b * n * n * 4, PEAK_F32)
     k4_ops = sum(kernels.dense_block_work(*s[:-1])[0]
                  for s in K4_BLOCKS.values())
     k4_bytes = sum(kernels.dense_block_work(*s[:-1])[1]
@@ -928,10 +1119,19 @@ def main():
         {"name": "fused_iou_prune", "route": "cuda",
          "source": "groomed_nms_torch/csrc/iou_prune.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:76",
-         "launches": train_launches,
+         "launches": train_launches["fused_iou_prune"],
          "max_abs_err": max(v["max_abs"] for v in k3.values()),
          "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"],
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "bound_ms": k3["train"]["bound_ms"],
+         "bound_by": k3["train"]["bound_by"], "library_ms": None},
+        # no TPU kernel: the JAX grouping is a lax.while_loop; launches the
+        # train loop's, ms on the operator's own input at [8, 512]
+        {"name": "group_leaders", "route": "cuda",
+         "source": "groomed_nms_torch/csrc/group_leaders.cu",
+         "replaces": "groomed_nms_tpu/ops/groomed_nms.py:94",
+         "launches": train_launches["group_leaders"], "max_abs_err": 0.0,
+         "ms": group["ms"], "plain_ms": group["plain_ms"],
+         "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
          "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {

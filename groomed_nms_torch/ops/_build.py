@@ -43,11 +43,16 @@ def _nvcc():
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` into a shared library; return its path.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills of every kernel) is kept beside the library as ``<name>.log``.
+    The hash covers the source, the headers (``*.cuh``) beside it and the
+    flags.  The compiler's output (``-Xptxas -v``: registers, shared memory
+    and spills of every kernel) is kept beside the library as
+    ``<name>.log``.
     """
     src = CSRC / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     lib = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib
@@ -85,6 +90,16 @@ def iou_prune_lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.iou_prune.argtypes = [p, p, p, p, i, i, i, f, f, f, p]
     lib.iou_prune.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def group_leaders_lib():
+    """The GrooMeD grouping library with its C entry's signature declared."""
+    lib = ctypes.CDLL(str(build("group_leaders.cu")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.group_leaders.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
+    lib.group_leaders.restype = ctypes.c_int
     return lib
 
 

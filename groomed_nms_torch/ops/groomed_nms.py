@@ -16,7 +16,8 @@ twin: it sorts, permutes a given overlap matrix and computes P itself, in
 every sorting mode.  ``groomed_nms_boxes`` is the path of the training loss
 and of the test-time decode: it sorts the boxes, and K3
 (``kernels.fused_iou_prune``) computes the sorted IoU and P in one pass,
-which ``differentiable_nms_sorted`` takes as they are.
+which ``differentiable_nms_sorted`` takes as they are.  The grouping is
+``kernels.group_leaders`` on either path.
 
 Gradients flow to the scores (and to the overlaps where they carry one);
 the grouping is integer-valued and takes none.
@@ -29,10 +30,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import kernels
 from .iou import iou3d_approximate
 from .kernels import fused_iou_prune, prune_transform
-
-_TRIPS_PER_CHECK = 4         # group_leaders: survivor trips per host read
 
 
 class GroomedNMSResult(NamedTuple):
@@ -124,52 +124,17 @@ def group_leaders(iou_sorted, scores_sorted, valid_sorted, nms_threshold,
     The reference groups greedily: the first alive box leads a group of
     every alive box i with ``M[i, leader] > nms_threshold``; all of them
     leave the alive set, and only the first ``group_size + 1`` (in score
-    order) stay in the group.  That loop's structure gives it without one
-    host round trip per group:
-
-    * the leaders are the greedy-NMS survivors in score order: box i
-      survives when it is valid and no earlier survivor j has ``M[i, j] >
-      nms_threshold``.  That rule has one solution (by induction over i),
-      and iterating it from "every valid box survives" reaches it: after t
-      trips rows 0..t-1 are final, and a trip that changes nothing has
-      reached it.  Each trip is one batched product on the device; the host
-      reads whether the last of every ``_TRIPS_PER_CHECK`` trips changed
-      anything (a few reads per call where greedy chains are short, never
-      one per group);
-    * box i's group is the first leader j <= i with ``M[i, j] >
-      nms_threshold`` (i itself for a leader);
-    * its rank in the group counts the members up to i (the cap).
-
-    ``scores_sorted`` is not read: the order is the rows' order.
+    order) stay in the group.  ``kernels.group_leaders`` computes it: on
+    the card one kernel call with no host read, on the CPU its plain
+    version.  ``scores_sorted`` is not read: the order is the rows' order.
     """
-    m, valid = iou_sorted, valid_sorted
-    if m.dim() == 2:
-        return group_leaders(m[None], scores_sorted, valid[None],
-                             nms_threshold, group_size)[0]
-    n = m.shape[-1]
-    idx = torch.arange(n, device=m.device)
-    over = m > nms_threshold
-    before = idx[None, :] < idx[:, None]                 # [i, j]: j < i
-    # 0/1 in f32: the products count earlier survivors exactly (TF32 too)
-    removable = (over & before).float()
-    leader_of = valid
-    while True:
-        for _ in range(_TRIPS_PER_CHECK):
-            prev = leader_of
-            hits = torch.bmm(removable, prev.float()[..., None])[..., 0]
-            leader_of = valid & (hits == 0)
-        if torch.equal(prev, leader_of):
-            break
-    joins = leader_of[:, None, :] & (over & before | torch.eye(
-        n, dtype=torch.bool, device=m.device))
-    # the first such leader: j weighted n - j so the argmax is unique
-    first = torch.where(joins, n - idx, 0).argmax(-1)
-    # members of i's group up to i itself: valid j <= i with the same leader
-    same = (first[:, :, None] == first[:, None, :]) & valid[:, None, :] & \
-        ~before.T
-    rank = same.sum(-1) - 1
-    capped = valid & (rank < group_size + 1)
-    return torch.where(capped, first, -1)
+    if iou_sorted.dim() == 2:
+        return group_leaders(iou_sorted[None], scores_sorted,
+                             valid_sorted[None], nms_threshold,
+                             group_size)[0]
+    return kernels.group_leaders(
+        iou_sorted.float().contiguous(), valid_sorted.contiguous(),
+        nms_threshold=nms_threshold, group_size=group_size)
 
 
 def _rescore_sorted(s, m, prune, v, g_order, *, nms_threshold,
@@ -179,7 +144,6 @@ def _rescore_sorted(s, m, prune, v, g_order, *, nms_threshold,
     re-sorts the rows for the grouping (soft sorting) or is None."""
     n = s.shape[-1]
     idx = torch.arange(n, device=s.device)
-    eye = torch.eye(n, dtype=s.dtype, device=s.device)
     if group_boxes:
         if g_order is None:
             leader = group_leaders(m, s, v, nms_threshold, group_size)
@@ -201,14 +165,15 @@ def _rescore_sorted(s, m, prune, v, g_order, *, nms_threshold,
         else:
             same = grouped[:, :, None] & (leader[:, :, None] ==
                                           leader[:, None, :])
-            a = eye + torch.where(same, prune, 0.0)
+            a = torch.eye(n, dtype=s.dtype, device=s.device) + \
+                torch.where(same, prune, 0.0)
             x = torch.linalg.solve_triangular(a, s[..., None], upper=False,
                                               unitriangular=True)[..., 0]
             rescored = torch.where(grouped, x, 0.0)
     else:
         leader = torch.where(v, idx, -1)
-        x = torch.linalg.solve_triangular(eye + prune, s[..., None],
-                                          upper=False,
+        a = torch.eye(n, dtype=s.dtype, device=s.device) + prune
+        x = torch.linalg.solve_triangular(a, s[..., None], upper=False,
                                           unitriangular=True)[..., 0]
         rescored = torch.where(v, x, 0.0)
     rescored = _clip(rescored, 0.0, 1.0)

@@ -19,6 +19,11 @@ K4 ``dense_block_eval`` (CUDA C++, ``csrc/dense_block.cu``) replaces
 eval-mode DenseNet block with BatchNorm folded to (mul, add), for the
 ``fast_eval`` engine (``models/fast_eval.py``).
 
+``group_leaders`` (CUDA C++, ``csrc/group_leaders.cu``) has no TPU kernel
+behind it: it computes GrooMeD-NMS's greedy grouping, which
+``groomed_nms_tpu/ops/groomed_nms.py::group_leaders`` leaves to XLA as a
+``lax.while_loop``, from the overlap matrix of score-sorted rows.
+
 Each wrapper checks its inputs and dispatches on the tensors' device: on the
 CPU it runs the kernel's plain PyTorch version (``*_plain``, the oracle the
 CPU tests hold against the JAX kernels), on a CUDA device it launches the
@@ -31,6 +36,7 @@ and the CUDA library built only when a kernel is first launched.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +51,13 @@ _NMS_BLOCK = 64              # rows / columns per uint64 mask word
 # already 18 GB an image here
 _NMS_MAX_N = 64 * 6000
 _IOU_TILE = 32               # K3: output tile edge (csrc/iou_prune.cu)
+# f32 operations of one IoU test of K2 and K3: min, max, sub, add and clamp
+# for each side, product, union, clamp, divide, compare
+IOU_TEST_OPS = 16
+# group_leaders: the grouping block keeps two ints a row in shared memory
+# (64 KB at this N); m is 256 MB an image here
+_GROUP_MAX_N = 8192
+_TRIPS_PER_CHECK = 4         # group_leaders_plain: survivor trips per host read
 
 
 def _device_kind(t):
@@ -319,6 +332,133 @@ def fused_iou_prune(boxes, valid=None, *, nms_threshold=0.4, temperature=0.1,
 
 
 fused_iou_prune.launches = 0
+
+
+def iou_prune_work(b, n):
+    """The least work of K3 at [b, n]: (f32 operations, bytes).  Each pair
+    of boxes tested once (``IOU_TEST_OPS``; the mirror is free), the boxes
+    and valid flags read once and both [b, n, n] f32 matrices written."""
+    return (b * n * (n - 1) // 2 * IOU_TEST_OPS,
+            b * n * (16 + 1) + 2 * b * n * n * 4)
+
+
+# ---------------------------------------------------------------------------
+# GrooMeD-NMS's grouping (CUDA C++)
+# ---------------------------------------------------------------------------
+
+def group_leaders_plain(m, valid, *, nms_threshold, group_size):
+    """The grouping in PyTorch: ``m`` [B, N, N], ``valid`` [B, N] ->
+    [B, N] int64 (arguments as ``group_leaders``).
+
+    The reference groups greedily: the first alive box leads a group of
+    every alive box i with ``m[i, leader] > nms_threshold``; all of them
+    leave the alive set, and only the first ``group_size + 1`` (in score
+    order) stay in the group.  That loop's structure gives it without one
+    host round trip per group:
+
+    * the leaders are the greedy-NMS survivors in score order: box i
+      survives when it is valid and no earlier survivor j has ``m[i, j] >
+      nms_threshold``.  That rule has one solution (by induction over i),
+      and iterating it from "every valid box survives" reaches it: after t
+      trips rows 0..t-1 are final, and a trip that changes nothing has
+      reached it.  Each trip is one batched product; the host reads whether
+      the last of every ``_TRIPS_PER_CHECK`` trips changed anything (a few
+      reads per call where greedy chains are short, never one per group);
+    * box i's group is the first leader j <= i with ``m[i, j] >
+      nms_threshold`` (i itself for a leader);
+    * its rank in the group counts the members up to i (the cap).
+    """
+    n = m.shape[-1]
+    idx = torch.arange(n, device=m.device)
+    over = m > nms_threshold
+    before = idx[None, :] < idx[:, None]                 # [i, j]: j < i
+    # 0/1 in f32: the products count earlier survivors exactly (TF32 too)
+    removable = (over & before).float()
+    leader_of = valid
+    while True:
+        for _ in range(_TRIPS_PER_CHECK):
+            prev = leader_of
+            hits = torch.bmm(removable, prev.float()[..., None])[..., 0]
+            leader_of = valid & (hits == 0)
+        if torch.equal(prev, leader_of):
+            break
+    joins = leader_of[:, None, :] & (over & before | torch.eye(
+        n, dtype=torch.bool, device=m.device))
+    # the first such leader: j weighted n - j so the argmax is unique
+    first = torch.where(joins, n - idx, 0).argmax(-1)
+    # members of i's group up to i itself: valid j <= i with the same leader
+    same = (first[:, :, None] == first[:, None, :]) & valid[:, None, :] & \
+        ~before.T
+    rank = same.sum(-1) - 1
+    capped = valid & (rank < group_size + 1)
+    return torch.where(capped, first, -1)
+
+
+def group_leaders_work(b, n):
+    """The least work of the grouping at [b, n]: (f32 compares, bytes).
+    The strict lower triangle of m read once (one compare an entry), the
+    valid flags read and the int64 leaders written."""
+    pairs = b * n * (n - 1) // 2
+    return pairs, pairs * 4 + b * n * (1 + 8)
+
+
+@torch.no_grad()
+def group_leaders(m, valid, *, nms_threshold, group_size):
+    """GrooMeD-NMS's greedy grouping of score-sorted rows.
+
+    ``m`` [B, N, N] f32 contiguous, the overlap of row i with row j at
+    ``m[i, j]`` (it need not be symmetric); ``valid`` [B, N] bool
+    contiguous on the same device.  Row i leads a group when it is valid and
+    no earlier leader j has ``m[i, j] > nms_threshold`` (an f32 compare;
+    NaN is never over).  A valid row's group is the first leader j <= i
+    with ``m[i, j] > nms_threshold`` (itself for a leader); the first
+    ``group_size + 1`` valid rows of a group, in row order, keep it.
+    Returns [B, N] int64: each row's leader, -1 for padding and for rows
+    past the cap (a negative ``group_size`` caps every row out).
+
+    On a CUDA tensor one call is two kernel launches (bits, then the
+    sweep) and counts once in ``group_leaders.launches``; N is at most
+    ``_GROUP_MAX_N`` there.
+    """
+    if m.dim() != 3 or m.shape[1] != m.shape[2] or m.dtype != torch.float32:
+        raise ValueError(f"m must be [B, N, N] f32, got {tuple(m.shape)} "
+                         f"{m.dtype}")
+    if not m.is_contiguous():
+        raise ValueError("m must be contiguous")
+    b, n, _ = m.shape
+    if valid.shape != (b, n) or valid.dtype != torch.bool or \
+            valid.device != m.device or not valid.is_contiguous():
+        raise ValueError(f"valid must be a contiguous bool [{b}, {n}] on "
+                         f"{m.device}, got {tuple(valid.shape)} "
+                         f"{valid.dtype} on {valid.device}")
+    if _device_kind(m) == "cpu":
+        return group_leaders_plain(m, valid, nms_threshold=nms_threshold,
+                                   group_size=group_size)
+
+    if n > _GROUP_MAX_N or b > 65535:
+        raise ValueError(f"group_leaders takes B <= 65535 and N <= "
+                         f"{_GROUP_MAX_N}, got B={b}, N={n}")
+    # rank < group_size + 1 for an integer rank in [0, n): the same as
+    # rank < cap with cap an integer in [0, n + 1]
+    cap = n + 1 if group_size >= n else max(math.ceil(group_size + 1), 0)
+    lib = _build.group_leaders_lib()
+    words = -(-n // _NMS_BLOCK)
+    sup = torch.empty((b, n, words), dtype=torch.int64, device=m.device)
+    over = torch.empty_like(sup)
+    out = torch.empty((b, n), dtype=torch.int64, device=m.device)
+    with torch.cuda.device(m.device):
+        err = lib.group_leaders(
+            m.data_ptr(), valid.data_ptr(), sup.data_ptr(), over.data_ptr(),
+            out.data_ptr(), b, n, float(nms_threshold), cap,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"group_leaders kernel launch failed: CUDA error "
+                           f"{err}")
+    group_leaders.launches += 1
+    return out
+
+
+group_leaders.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -303,10 +303,13 @@ def test_f32_fast_eval_on_cuda_is_refused_at_build(cuda):
 
 @pytest.mark.parametrize("method", ["linear", "sigmoidal", "soft_nms"])
 @pytest.mark.parametrize("b,n", [(8, 512), (1, 1000), (1, 1), (3, 33),
-                                 (2, 300)])
+                                 (2, 300), (2, 31), (2, 64), (3, 65),
+                                 (2, 100), (1, 2048)])
 def test_iou_prune_kernel_matches_plain(cuda, b, n, method):
     """IoU identical and the linear prune identical (the same f32 ops in
-    the same order, no FMA); sigmoid and exp within 1e-6."""
+    the same order, no FMA, IEEE quotients); sigmoid and exp within 1e-6.
+    N covers one box, ragged 32-row tiles, N % 4 != 0 (scalar stores) and
+    many tiles of the triangular grid."""
     boxes, scores = _nms_case(np.random.default_rng(n), b, n)
     boxes = torch.from_numpy(boxes).to(cuda)
     valid = torch.from_numpy(scores > 0).to(cuda)
@@ -328,6 +331,32 @@ def test_iou_prune_kernel_matches_plain(cuda, b, n, method):
     assert not prune.triu().any()
 
 
+def _wide_range_boxes(rs, b, n):
+    """Boxes whose sides span 2^-25..2^63, nested across scales."""
+    side = np.exp2(rs.uniform(-25, 63, (b, n, 2)))
+    center = np.exp2(rs.uniform(-25, 63, (b, n, 2))) * rs.uniform(
+        -1, 1, (b, n, 2))
+    return np.concatenate([center - side / 2, center + side / 2],
+                          -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("shift", [0.0, 1.0])
+def test_iou_prune_kernel_quotients_outside_the_fast_range(cuda, shift):
+    """Quotients the kernel divides exactly after its branch-free pass
+    (unions at the 1e-12 clamp and past 2^126, ratios far below 2^-60) are
+    the plain version's, as are the ordinary ones beside them."""
+    rs = np.random.default_rng(3)
+    boxes = torch.from_numpy(_wide_range_boxes(rs, 2, 700)).to(cuda)
+    boxes[:, ::50, 2] = boxes[:, ::50, 0]             # zero-width boxes
+    valid = torch.ones((2, 700), dtype=torch.bool, device=cuda)
+    iou, prune = kernels.fused_iou_prune(boxes, valid, shift=shift)
+    ref_iou, ref_prune = kernels.fused_iou_prune_plain(boxes, valid,
+                                                       shift=shift)
+    torch.cuda.synchronize()
+    assert torch.equal(iou, ref_iou) and torch.equal(prune, ref_prune)
+    assert bool(((iou > 0) & (iou < 2.0 ** -60)).any())
+
+
 def test_iou_prune_kernel_refuses_misaligned_boxes(cuda):
     flat = torch.zeros(1 + 2 * 10 * 4, device=cuda)
     with pytest.raises(ValueError):
@@ -344,12 +373,82 @@ def test_groomed_nms_operator_on_cuda_matches_cpu(cuda, b, n):
     valid = scores > 0
     ref = groomed_nms_boxes(scores, boxes, valid)
     before = kernels.fused_iou_prune.launches
+    before_g = kernels.group_leaders.launches
     got = groomed_nms_boxes(scores.to(cuda), boxes.to(cuda), valid.to(cuda))
     assert kernels.fused_iou_prune.launches == before + 1
+    assert kernels.group_leaders.launches == before_g + 1
     assert torch.equal(got.leader.cpu(), ref.leader)
     assert torch.equal(got.keep.cpu(), ref.keep) and ref.keep.any()
     torch.testing.assert_close(got.rescored.cpu(), ref.rescored, rtol=0,
                                atol=1e-6)
+
+
+def test_groomed_nms_operator_does_not_synchronise(cuda):
+    """The operator at the shipped config ("2d", masked groups, group size
+    100) makes no synchronising CUDA call: no host read of the device."""
+    boxes, scores = _nms_case(np.random.default_rng(4), 8, 512)
+    scores = np.random.default_rng(5).permutation(scores, axis=1)
+    scores = torch.from_numpy(scores).to(cuda)
+    args = (scores, torch.from_numpy(boxes).to(cuda), scores > 0)
+    groomed_nms_boxes(*args)              # builds the kernels first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = groomed_nms_boxes(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool((res.leader >= 0).any())
+
+
+def _grouping_case(b, n, kind, dev, seed):
+    """m [b, n, n] f32 and valid [b, n]: the unmasked IoU of clustered
+    boxes with padding rows and a hole every 7th row ("iou"), or that IoU
+    scaled by random gains (asymmetric) with 1% of its entries exactly at
+    the 0.4 threshold and 0.5% NaN ("mixed")."""
+    rs = np.random.default_rng(seed)
+    boxes, scores = _nms_case(rs, b, n)
+    valid = scores > 0
+    valid[:, 3::7] = False
+    m = kernels.fused_iou_prune_plain(
+        torch.from_numpy(boxes).to(dev),
+        torch.ones((b, n), dtype=torch.bool, device=dev))[0]
+    if kind == "mixed":
+        g = torch.Generator(device=dev).manual_seed(seed)
+        m = m * (0.75 + 0.5 * torch.rand(m.shape, generator=g, device=dev))
+        u = torch.rand(m.shape, generator=g, device=dev)
+        m = torch.where(u < 0.01, torch.full_like(m, 0.4), m)
+        m = torch.where(u > 0.995, torch.full_like(m, float("nan")), m)
+    return m.contiguous(), torch.from_numpy(valid).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["iou", "mixed"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 512, 1000, 4096])
+@pytest.mark.parametrize("b", [1, 8])
+def test_group_leaders_kernel_matches_plain(cuda, b, n, kind):
+    """The grouping kernel's leaders equal the plain version's for every
+    group size, including a negative one (every row capped out)."""
+    m, valid = _grouping_case(b, n, kind, cuda, seed=b * n)
+    for group_size in (-1, 0, 1, 100):
+        kw = dict(nms_threshold=0.4, group_size=group_size)
+        before = kernels.group_leaders.launches
+        got = kernels.group_leaders(m, valid, **kw)
+        assert kernels.group_leaders.launches == before + 1
+        ref = kernels.group_leaders_plain(m, valid, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and got.shape == (b, n)
+        assert torch.equal(got, ref), group_size
+        if group_size < 0:
+            assert bool((got == -1).all())
+
+
+def test_group_leaders_kernel_refuses_above_its_limit(cuda):
+    n = kernels._GROUP_MAX_N + 1
+    m = torch.zeros((1, n, n), device=cuda)
+    valid = torch.ones((1, n), dtype=torch.bool, device=cuda)
+    before = kernels.group_leaders.launches
+    with pytest.raises(ValueError, match="N <="):
+        kernels.group_leaders(m, valid, nms_threshold=0.4, group_size=100)
+    assert kernels.group_leaders.launches == before
 
 
 def _perturb_(model, seed):
@@ -386,9 +485,11 @@ def test_train_step_on_cuda_matches_cpu(cuda):
             step, state, batch = build_flagship_train(device=device, **small)
             _perturb_(state.model, seed=5)
             before = kernels.fused_iou_prune.launches
+            before_g = kernels.group_leaders.launches
             stats = step(state, batch)
             if device != "cpu":
                 assert kernels.fused_iou_prune.launches == before + 1
+                assert kernels.group_leaders.launches == before_g + 1
             results.append(({k: float(v) for k, v in stats.items()},
                             {k: v.cpu() for k, v in
                              state.model.state_dict().items()}))

@@ -1,7 +1,8 @@
 """The port's GrooMeD-NMS operator and K3's plain version against JAX.
 
 K3 runs on the JAX side as its Pallas kernel in interpret mode; the port
-runs its plain PyTorch versions (the CPU path).  Inputs come from numpy
+runs its plain PyTorch versions (the CPU path), K3's and the grouping
+kernel's (``kernels.group_leaders``).  Inputs come from numpy
 seeds.  Tolerances: K3 at atol 1e-6 (the same f32 operations in the same
 order); rescored values at atol 1e-6 with identical keep and leader
 (integer decisions); score gradients at rtol 1e-4, atol 1e-6 (sums over
@@ -21,6 +22,7 @@ from groomed_nms_tpu.ops.pallas_kernels import fused_iou_prune as jax_k3
 from groomed_nms_torch.ops import groomed_nms as tgn
 from groomed_nms_torch.ops.geometry import get_corners_of_cuboid
 from groomed_nms_torch.ops.iou import iou3d_approximate, pairwise_iou
+from groomed_nms_torch.ops import kernels
 from groomed_nms_torch.ops.kernels import (fused_iou_prune,
                                            fused_iou_prune_plain)
 
@@ -109,6 +111,30 @@ def test_k3_wrapper_refuses_bad_arguments(bad):
                         pruning_method=args["pruning_method"])
 
 
+@pytest.mark.parametrize("n,n_pad", [(1, 0), (64, 0), (100, 13),
+                                     (512, 51), (1000, 0)])
+def test_k3_plain_iou_is_bitwise_symmetric(n, n_pad):
+    """The premise of K3's mirrored tiles: iou[i, j] and iou[j, i] are the
+    same f32 (min, max, the product and area_i + area_j commute)."""
+    rs = np.random.default_rng(n + 1)
+    boxes = _boxes(rs, 2, n)
+    boxes[1] *= np.float32(1e3)                # other magnitudes
+    valid = torch.from_numpy(_valid(2, n, n_pad))
+    for shift in (0.0, 1.0):
+        iou, _ = fused_iou_prune_plain(torch.from_numpy(boxes), valid,
+                                       shift=shift)
+        bits = iou.view(torch.int32)
+        assert torch.equal(bits, bits.transpose(1, 2))
+
+
+def test_k3_work_is_pinned():
+    """K3's least work (chip_smoke.py's bound): 16 f32 operations a pair of
+    boxes, boxes and valid flags read, both f32 matrices written."""
+    assert kernels.iou_prune_work(8, 512) == (8 * 512 * 511 // 2 * 16,
+                                              8 * 512 * 17 + 2 * 8 * 512 * 512 * 4)
+    assert kernels.iou_prune_work(1, 1) == (0, 17 + 8)
+
+
 # ---------------------------------------------------------------------------
 # the operator's pieces
 # ---------------------------------------------------------------------------
@@ -171,6 +197,77 @@ def test_group_leaders_match_jax(n, n_pad, group_size, asymmetric):
     ref_t = jgn.group_leaders(jnp.asarray(m.T), jnp.asarray(s),
                               jnp.asarray(valid), 0.4, group_size)
     np.testing.assert_array_equal(got_b[1].numpy(), np.asarray(ref_t))
+
+
+def _kernel_grouping_case(rs, b, n, asymmetric):
+    """m [b, n, n] f32 from clustered boxes (a row-mixed copy when
+    asymmetric), 5% of the entries set exactly to the 0.4 threshold, and
+    valid [b, n] with holes and padding at the end."""
+    m = np.stack([_grouping_case(rs, n, asymmetric) for _ in range(b)])
+    m[rs.uniform(size=m.shape) < 0.05] = np.float32(0.4)
+    valid = rs.uniform(size=(b, n)) > 0.15
+    valid[:, n - n // 8:] = False
+    return m, valid
+
+
+@pytest.mark.parametrize("group_size", [-1, 0, 1, 100])
+@pytest.mark.parametrize("asymmetric", [False, True])
+@pytest.mark.parametrize("n", [1, 70, 130])
+def test_group_leaders_kernel_on_cpu_matches_jax(n, asymmetric, group_size):
+    """kernels.group_leaders on CPU tensors is its plain version and equals
+    JAX's group_leaders image by image: ties at the threshold are not over,
+    padding holes never lead or join, a negative group size caps every row
+    out."""
+    rs = np.random.default_rng(n * 7 + group_size + asymmetric)
+    m, valid = _kernel_grouping_case(rs, 3, n, asymmetric)
+    before = kernels.group_leaders.launches
+    got = kernels.group_leaders(torch.from_numpy(m), torch.from_numpy(valid),
+                                nms_threshold=0.4, group_size=group_size)
+    assert kernels.group_leaders.launches == before        # the plain path
+    assert got.dtype == torch.int64 and got.shape == (3, n)
+    ref_plain = kernels.group_leaders_plain(
+        torch.from_numpy(m), torch.from_numpy(valid), nms_threshold=0.4,
+        group_size=group_size)
+    assert torch.equal(got, ref_plain)
+    for i in range(3):
+        s = np.linspace(1.0, 0.1, n, dtype=np.float32)
+        ref = jgn.group_leaders(jnp.asarray(m[i]), jnp.asarray(s),
+                                jnp.asarray(valid[i]), 0.4, group_size)
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(ref))
+    assert not bool((got[torch.from_numpy(~valid)] >= 0).any())
+    if group_size < 0:
+        assert bool((got == -1).all())
+
+
+@pytest.mark.parametrize("bad", ["rank", "dtype", "non_square",
+                                 "non_contiguous", "valid_shape",
+                                 "valid_dtype", "valid_non_contiguous"])
+def test_group_leaders_wrapper_refuses_bad_arguments(bad):
+    m = torch.zeros(2, 6, 6)
+    valid = torch.ones(2, 6, dtype=torch.bool)
+    if bad == "rank":
+        m = m[0]
+    elif bad == "dtype":
+        m = m.double()
+    elif bad == "non_square":
+        m = torch.zeros(2, 6, 5)
+    elif bad == "non_contiguous":
+        m = m.transpose(1, 2)
+    elif bad == "valid_shape":
+        valid = valid[:, :5]
+    elif bad == "valid_dtype":
+        valid = valid.float()
+    elif bad == "valid_non_contiguous":
+        valid = torch.ones(6, 2, dtype=torch.bool).T
+    with pytest.raises(ValueError):
+        kernels.group_leaders(m, valid, nms_threshold=0.4, group_size=100)
+
+
+def test_group_leaders_work_is_pinned():
+    """The grouping's least work (chip_smoke.py's bound): m's strict lower
+    triangle read once, valid read, int64 leaders written."""
+    assert kernels.group_leaders_work(8, 512) == (
+        8 * 512 * 511 // 2, 8 * 512 * 511 // 2 * 4 + 8 * 512 * 9)
 
 
 # ---------------------------------------------------------------------------
