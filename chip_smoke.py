@@ -7,8 +7,10 @@ Phases, in order; any failure raises and exits non-zero:
   1. device  -- a CUDA card is required; prints its name and power limit;
   2. build   -- nvcc builds the greedy-NMS, dense-block, IoU/prune and
                 grouping libraries (csrc/greedy_nms.cu, csrc/dense_block.cu,
-                csrc/iou_prune.cu, csrc/group_leaders.cu), all at once,
-                into build/groomed_nms_torch/ and prints their -Xptxas -v
+                csrc/iou_prune.cu, csrc/group_leaders.cu), and the host
+                compiler the PNG unfilter (csrc/png_unfilter.cpp) and the
+                C++ evaluator (make -C eval), all at once, into
+                build/groomed_nms_torch/ and eval/; prints the -Xptxas -v
                 logs;
                 Triton compiles the head-score kernel on its first launch;
   3. K1      -- fused_head_scores against its plain version at the main-path
@@ -67,7 +69,27 @@ Phases, in order; any failure raises and exits non-zero:
                 finite loss and
                 gradients, parameters and running statistics moved; ms per
                 step, img/s, a stage split and the peak device memory;
- 12. the kernels JSON line, then the last line:
+ 12. eval   -- the evaluation slice: a synthetic KITTI val tree of 40
+                frames at 375x1242 and 370x1224, a port checkpoint of a
+                perturbed RPN3D and an anchors.npz; scripts/evaluate_torch.py
+                at full width (groomed_nms, 512x1760, bf16, batch 8) in three
+                modes, each writing rows: (a) grouped (K1 + K2), (b)
+                --single-program, (c) GrooMeD-NMS (K1, K3, the grouping),
+                with the launches of each run counted; the C++ evaluator's
+                AP dict; grouped against single-program in bf16, traced to
+                its cause on 8 frames (bf16_divergence: the two modes'
+                inputs within 1e-4 in f32 and one bf16 step in bf16, each
+                mode's rows the model's on its input, beside a control of
+                random one-step moves), and in f32 (TF32 off) row for row;
+                the card against the CPU path at 128x416 f32, row for row;
+                the loop's img/s after a warm-up pass, over the tree and
+                over the tree repeated EVAL_REPEAT times, beside
+                make_infer's served img/s and the host's time to queue a
+                batch, the share of the loop's wall with a batch in flight,
+                the loop again with the decode cache warm, decode ms
+                (inflate, unfilter), the copy of a batch and the evaluator's
+                seconds;
+ 13. the kernels JSON line, then the last line:
      {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
@@ -88,11 +110,12 @@ import torch.nn.functional as F
 
 from groomed_nms_torch.config import load_config
 from groomed_nms_torch.data.augment import preprocess_images
+from groomed_nms_torch.eval.kitti_eval import ensure_binary
 from groomed_nms_torch.flagship import (NUM_ANCHORS, build_flagship,
                                         build_flagship_train)
-from groomed_nms_torch.inference import (decode_detections, im_detect_3d,
-                                         nms_and_topk, rpn_outputs_dict,
-                                         select_top_pre_nms,
+from groomed_nms_torch.inference import (clip_detections, decode_detections,
+                                         im_detect_3d, nms_and_topk,
+                                         rpn_outputs_dict, select_top_pre_nms,
                                          write_kitti_detections)
 from groomed_nms_torch.models.densenet import tiny_densenet_config
 from groomed_nms_torch.models.fast_eval import FastEvalRPN3D, KernelDenseBlock
@@ -761,6 +784,465 @@ def train_phase(stamp):
     return launches
 
 
+# the evaluation slice (phase 12): a synthetic KITTI val tree at two of
+# KITTI's sizes, frames alternating; KITTI txt rows compared as the CPU
+# tests compare them: the same files, rows and classes, every number within
+# 1e-3 absolute + 1e-4 relative
+EVAL_FRAMES, EVAL_SIZES = 40, ((375, 1242), (370, 1224))
+EVAL_REPEAT = 10                      # the tree's records repeated for timing
+TXT_ATOL, TXT_RTOL = 1e-3, 1e-4
+EVAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_eval")
+
+
+def read_rows(data_dir):
+    """{file: [(class, numbers)]} of a directory of KITTI txt files."""
+    out = {}
+    for name in sorted(os.listdir(data_dir)):
+        with open(os.path.join(data_dir, name)) as f:
+            out[name] = [(p[0], np.array([float(v) for v in p[1:]]))
+                         for p in (ln.split() for ln in f.read().splitlines())]
+    return out
+
+
+def row_agreement(got, want):
+    """(files and row counts and classes all equal, rows compared, rows
+    within TXT_ATOL + TXT_RTOL * |want|, max |err| over compared numbers)."""
+    same = sorted(got) == sorted(want)
+    n = ok = 0
+    max_err = 0.0
+    for name, rows in want.items():
+        g = got.get(name, [])
+        same &= len(g) == len(rows)
+        for (cls_g, v_g), (cls_w, v_w) in zip(g, rows):
+            same &= cls_g == cls_w
+            err = np.abs(v_g - v_w)
+            n += 1
+            ok += bool(np.all(err <= TXT_ATOL + TXT_RTOL * np.abs(v_w)))
+            max_err = max(max_err, float(err.max()))
+    return same, n, ok, max_err
+
+
+def box_matches(got, want, px=1.0):
+    """Rows of ``want`` with a row of the same class in the same file of
+    ``got`` whose 2D box is within ``px`` pixels on every side."""
+    n = 0
+    for name, rows in want.items():
+        cand = got.get(name, [])
+        for cls_w, v_w in rows:
+            n += any(c == cls_w and np.abs(v[3:7] - v_w[3:7]).max() <= px
+                     for c, v in cand)
+    return n
+
+
+def bf16_step(x):
+    """The spacing of bf16 values at magnitude ``x`` (0 at 0)."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs())) - 7)
+
+
+def bf16_divergence(model, cfg, imdb, rois, rois_3d, dev, flush, stamp):
+    """Why grouped and single-program rows differ in bf16, at full width.
+
+    Eight frames of the smaller size, preprocessed as each mode does:
+    statically (grouped) and edge-padded into the larger plane and
+    resampled (single-program).  Checked: the two inputs agree within 1e-4
+    in f32 (the resample's products out of TF32's reach, with TF32
+    allowed globally), and in bf16 every element within 1e-4 plus one
+    bf16 step at its magnitude (near zero an f32 difference spans many
+    steps); each mode's rows through ``make_infer`` are the model's rows
+    on that input, and the model gives the same rows on one input twice.
+    So the two modes' bf16 rows differ only through inputs one rounding
+    apart.  Beside them a control moves as many elements of the grouped
+    input, chosen at random, by one bf16 step: the head's divergence on
+    the single-program input must stay within twice the control's."""
+    from groomed_nms_torch.data import png
+    from groomed_nms_torch.data.augment import (pad_image_edge,
+                                                preprocess_images_dynamic)
+    from groomed_nms_torch.eval import tester
+
+    b, (h0, w0) = 8, EVAL_SIZES[0]
+    recs = [r for r in imdb if (r.im_h, r.im_w) == EVAL_SIZES[1]][:b]
+    frames = np.stack([png.read_png(r.image_path) for r in recs])
+    plane = np.stack([pad_image_edge(f, h0, w0) for f in frames])
+    p2 = np.stack([r.p2 for r in recs]).astype(np.float32)
+
+    def on_dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    target_h, crop_w = cfg.crop_size
+    means, stds = on_dev(cfg.image_means), on_dev(cfg.image_stds)
+    hw = on_dev([[r.im_h, r.im_w] for r in recs])
+    rest = (on_dev(rois), on_dev(rois_3d), on_dev(p2),
+            on_dev(np.linalg.inv(p2)),
+            on_dev([target_h / r.im_h for r in recs]), on_dev(np.zeros(13)),
+            on_dev(np.ones(13)))
+    size = dict(target_h=target_h, crop_w=crop_w)
+    u8_a, u8_b = on_dev(frames, torch.uint8), on_dev(plane, torch.uint8)
+    x_a = preprocess_images(u8_a, None, means, stds, **size)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x_b = preprocess_images_dynamic(u8_b, hw, means, stds, **size)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    pre_ms = {
+        "static": time_ms(lambda: preprocess_images(
+            u8_a, None, means, stds, out_dtype=torch.bfloat16, **size), 5,
+            flush),
+        "dynamic": time_ms(lambda: preprocess_images_dynamic(
+            u8_b, hw, means, stds, out_dtype=torch.bfloat16, **size), 5,
+            flush)}
+    f32_err = float((x_a - x_b).abs().max())
+    a16, b16 = x_a.bfloat16(), x_b.bfloat16()
+    diff = (a16.float() - b16.float()).abs()
+    room = 1e-4 + bf16_step(torch.maximum(a16.float().abs(),
+                                          b16.float().abs()))
+    n_moved = int((diff > 0).sum())
+    worst = float((diff / room).max())
+    # the control: as many elements of the grouped input, at random, one
+    # bf16 step away from zero
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    pick = torch.randperm(a16.numel(), generator=gen, device=dev)[:n_moved]
+    c16 = a16.clone(memory_format=torch.contiguous_format)
+    c16.view(-1).view(torch.int16)[pick] += 1
+    c16 = c16.contiguous(memory_format=torch.channels_last)
+    dcfg = cfg.detect_config()
+    lbls = list(cfg.lbls)
+
+    @torch.inference_mode()
+    def detect(x):
+        with torch.autocast(x.device.type, dtype=torch.bfloat16):
+            out = model(x)
+        return out.fused_raw.float(), im_detect_3d(rpn_outputs_dict(out),
+                                                   *rest, dcfg)
+
+    def rows(dets_valid, name):
+        dets, valid = (t.cpu().numpy() for t in dets_valid)
+        out = os.path.join(EVAL_DIR, "bf16_" + name)
+        os.makedirs(out)
+        for bi, rec in enumerate(recs):
+            d = dets[bi]
+            if cfg.clip_boxes:
+                d = clip_detections(d, rec.im_w, rec.im_h)
+            write_kitti_detections(os.path.join(out, rec.id + ".txt"), d,
+                                   valid[bi], lbls,
+                                   score_thres=cfg.score_thres)
+        return read_rows(out)
+
+    infer = tester.make_infer(model, dcfg, target_h, crop_w, torch.bfloat16)
+    rows_ia = rows(infer(on_dev(frames, torch.uint8), means, stds, *rest),
+                   "infer_a")
+    rows_ib = rows(infer(on_dev(plane, torch.uint8), means, stds, *rest,
+                         src_hw=hw), "infer_b")
+    head, rows_x = {}, {}
+    for name, x in (("a", a16), ("a_again", a16), ("b", b16),
+                    ("control", c16)):
+        head[name], dv = detect(x)
+        rows_x[name] = rows(dv, name)
+    ref = head["a"]
+
+    rel = {name: float((head[name] - ref).abs().mean() / ref.abs().mean())
+           for name in head}
+
+    def diverge(name):
+        same, n, ok, err = row_agreement(rows_x[name], rows_x["a"])
+        return (f"{ok} of {n} rows within {TXT_ATOL:g} + {TXT_RTOL:g}*|x| in "
+                f"order (files/rows/classes equal {same}), max |err| "
+                f"{err:.3e}, {box_matches(rows_x[name], rows_x['a'])} of {n} "
+                f"with a row of their class within 1 px; the head's "
+                f"mean|diff|/mean|ref| {rel[name]:.3e}")
+
+    print(f"eval bf16 divergence, 8 frames {EVAL_SIZES[1]}: single-program "
+          f"input vs grouped, f32 max |err| {f32_err:.3e} (tol 1e-4, the "
+          f"static resize's), bf16 {n_moved} of {a16.numel()} elements "
+          f"moved, max |diff| {float(diff.max()):.3e}, at most {worst:.3f} "
+          f"of 1e-4 + one bf16 step at its magnitude (tol 1); "
+          f"device ms a batch of {b}: static preprocess "
+          f"{pre_ms['static']:.4f}, dynamic {pre_ms['dynamic']:.4f} {stamp}",
+          flush=True)
+    for name in ("a_again", "b", "control"):
+        print(f"eval bf16 divergence, model on input {name} vs on input a: "
+              f"{diverge(name)}", flush=True)
+    for got, want, what in ((rows_ia, rows_x["a"], "grouped"),
+                            (rows_ib, rows_x["b"], "single-program")):
+        same, n, ok, err = row_agreement(got, want)
+        print(f"eval bf16 divergence, {what} make_infer vs the model on its "
+              f"input: {ok} of {n} rows, max |err| {err:.3e}", flush=True)
+        assert same and ok == n, \
+            f"{what} rows are not the model's on its input"
+    same, n, ok, _ = row_agreement(rows_x["a_again"], rows_x["a"])
+    assert same and ok == n, "the bf16 model's rows differ on one input"
+    assert f32_err <= 1e-4, "the two modes' f32 inputs differ"
+    assert worst <= 1.0, "the two modes' bf16 inputs differ"
+    assert rel["b"] <= 2 * rel["control"], \
+        "the single-program head diverges beyond one-step input moves"
+    print(f"eval bf16 divergence checked {stamp}", flush=True)
+
+
+def eval_phase(dev, flush, stamp):
+    """12: scripts/evaluate_torch.py over a synthetic val tree, checked and
+    timed (see the module docstring)."""
+    import importlib.util
+    import shutil
+
+    from groomed_nms_torch.anchors import locate_anchors
+    from groomed_nms_torch.config import apply_overrides
+    from groomed_nms_torch.data import png
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.data.synthetic import (crop_to_sizes,
+                                                  make_synthetic_kitti)
+    from groomed_nms_torch.eval import tester
+    from groomed_nms_torch.eval.kitti_eval import \
+        evaluate_kitti_results_verbose
+    from groomed_nms_torch.flagship import flagship_priors
+    from groomed_nms_torch.training.checkpoint import save_checkpoint
+
+    print(f"eval: make {shutil.which('make')}, g++ {shutil.which('g++')}, "
+          f"c++ {shutil.which('c++')}", flush=True)
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    data_root = os.path.join(EVAL_DIR, "data")
+    out_root = os.path.join(EVAL_DIR, "output")
+    root = os.path.join(data_root, "kitti_split1")
+    t0 = time.perf_counter()
+    make_synthetic_kitti(root, "validation", EVAL_FRAMES, seed=12,
+                         classes=("Car", "Pedestrian", "Cyclist"))
+    crop_to_sizes(root, "validation", EVAL_SIZES)
+    run_dir = os.path.join(out_root, "groomed_nms")
+    os.makedirs(run_dir)
+    priors = flagship_priors()
+    np.savez(os.path.join(run_dir, "anchors.npz"), anchors=priors,
+             bbox_means=np.zeros(13), bbox_stds=np.ones(13))
+    model = perturbed_rpn3d(seed=7)
+    save_checkpoint(run_dir, model, step=0)
+    imdb = build_imdb(root, "validation")
+    sizes = sorted({(r.im_h, r.im_w) for r in imdb})
+    print(f"eval: {len(imdb)} frames at sizes {sizes}, anchors.npz and "
+          f"checkpoint_0.pt written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    assert sizes == sorted(EVAL_SIZES)
+
+    spec = importlib.util.spec_from_file_location(
+        "evaluate_torch", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "evaluate_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    results = os.path.join(run_dir, "results", "results_0", "data")
+    base = ["--config", "groomed_nms", "--data-root", data_root, "--output",
+            out_root, "--restore", "0", "--batch", "8", "--set",
+            "score_thres=0.0"]
+    names = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+             "group_leaders")
+
+    def run(name, *extra, device="cuda", dtype="bfloat16"):
+        """One run of the script; returns (AP dict, rows, launches)."""
+        shutil.rmtree(results, ignore_errors=True)   # no earlier run's files
+        for n in names:
+            getattr(kernels, n).launches = 0
+        t = time.perf_counter()
+        ap = script.main([*base, "--device", device, "--set",
+                          f"compute_dtype={dtype}", *extra])
+        wall = time.perf_counter() - t
+        launches = {n: getattr(kernels, n).launches for n in names}
+        keep = os.path.join(EVAL_DIR, name)
+        shutil.copytree(results, keep)
+        rows = read_rows(keep)
+        n_rows = sum(len(v) for v in rows.values())
+        print(f"eval ({name}): {len(rows)} txt files, {n_rows} rows, "
+              f"launches {launches}, {wall:.1f} s with set-up and the "
+              f"evaluator {stamp}", flush=True)
+        assert n_rows > 0, f"mode {name} wrote no row"
+        return ap, rows, launches
+
+    groomed = ("--set", "use_differentiable_nms_at_test=True", "--set",
+               "diff_nms_valid_box_prob_threshold=0.0")
+    b = 8
+    n_grouped = sum(-(-sum(1 for r in imdb if (r.im_h, r.im_w) == sz) // b)
+                    for sz in EVAL_SIZES)
+    n_single = -(-len(imdb) // b)
+    ap_a, rows_a, launch_a = run("a_grouped")
+    _, rows_b, launch_b = run("b_single_program", "--single-program")
+    _, rows_c, launch_c = run("c_groomed", *groomed)
+    assert launch_a == dict(fused_head_scores=n_grouped, greedy_nms=n_grouped,
+                            fused_iou_prune=0, group_leaders=0), launch_a
+    assert launch_b == dict(fused_head_scores=n_single, greedy_nms=n_single,
+                            fused_iou_prune=0, group_leaders=0), launch_b
+    assert launch_c == dict(fused_head_scores=n_grouped, greedy_nms=0,
+                            fused_iou_prune=n_grouped,
+                            group_leaders=n_grouped), launch_c
+    assert len(rows_a) == len(rows_b) == len(rows_c) == len(imdb)
+    assert isinstance(ap_a, dict) and ap_a["main"], "no AP dict"
+    aps = {f"{c} {m}": [round(v, 2) for v in ap]
+           for (c, m), ap in sorted(ap_a["main"].items())}
+    print(f"eval (a): the evaluator's AP|R40 main pass on random weights "
+          f"(means nothing; shows the evaluator ran): {json.dumps(aps)}",
+          flush=True)
+
+    # grouped against single-program: in bf16 the two resamples (a 2-tap
+    # bilinear kernel in f32, a weight-matrix product) round apart, which
+    # can move a trunk input by one bf16 step, so the bf16 rows are
+    # reported here and the cause is checked by bf16_divergence; the rows'
+    # agreement is checked in f32 with TF32 off, at full width
+    same, n, ok, err = row_agreement(rows_b, rows_a)
+    print(f"eval (a) vs (b), bf16 (reported): files/rows/classes equal "
+          f"{same}; {ok} of {n} rows within {TXT_ATOL:g} + {TXT_RTOL:g}*|x| "
+          f"in order, max |err| {err:.3e}; {box_matches(rows_b, rows_a)} of "
+          f"{n} (a) rows have a (b) row of their class whose 2D box is "
+          f"within 1 px", flush=True)
+    cfg = apply_overrides(load_config("groomed_nms"),
+                          ["score_thres=0.0", "compute_dtype=bfloat16"])
+    model = model.to(dev, memory_format=torch.channels_last)
+    rois = locate_anchors(priors, (512 // 16, 1760 // 16), 16)
+    rois_3d = priors[rois[:, 4].astype(np.int64), 4:]
+    bf16_divergence(model, cfg, imdb, rois, rois_3d, dev, flush, stamp)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lim = ("--limit", "16")
+        _, rows_af, _ = run("a_grouped_f32", *lim, dtype="float32")
+        _, rows_bf, _ = run("b_single_program_f32", "--single-program", *lim,
+                            dtype="float32")
+        same, n, ok, err = row_agreement(rows_bf, rows_af)
+        print(f"eval (a) vs (b), f32, TF32 off, 16 frames: files/rows/classes "
+              f"equal {same}; {ok} of {n} rows within {TXT_ATOL:g} + "
+              f"{TXT_RTOL:g}*|x|; max |err| {err:.3e}", flush=True)
+        assert same and ok == n, "grouped and single-program rows disagree"
+        # the same tester on the card and on the CPU (the kernels' plain
+        # versions) at a small crop, f32, TF32 off
+        small = ("--limit", "8", "--set", "crop_size=(128, 416)")
+        _, rows_cpu, _ = run("cpu_small_f32", *small, device="cpu",
+                             dtype="float32")
+        _, rows_gpu, _ = run("card_small_f32", *small, dtype="float32")
+        same, n, ok, err = row_agreement(rows_gpu, rows_cpu)
+        print(f"eval: card vs CPU path at 128x416 f32, TF32 off, 8 frames: "
+              f"files/rows/classes equal {same}; {ok} of {n} rows within "
+              f"{TXT_ATOL:g} + {TXT_RTOL:g}*|x|; max |err| {err:.3e}",
+              flush=True)
+        assert same and ok == n, "the card's rows differ from the CPU path's"
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+    # the loop's speed: bf16 grouped, after one warm-up pass, over the tree
+    # and over the tree repeated EVAL_REPEAT times (the pipeline's fill and
+    # drain amortised), beside make_infer serving one resident batch
+    loop_dir = os.path.join(EVAL_DIR, "loop")
+    long_imdb = list(imdb) * EVAL_REPEAT
+
+    def loop(recs, **kw):
+        stats = {}
+        tester.test_kitti_3d(cfg, model, rois, rois_3d, np.zeros(13),
+                             np.ones(13), recs, loop_dir, batch_size=b,
+                             skip_eval=True, log_fn=lambda s: None,
+                             loop_stats=stats, **kw)
+        return stats
+
+    loop(imdb)
+    stats, steady = loop(imdb), loop(long_imdb)
+    infer = tester.make_infer(model, cfg.detect_config(), 512, 1760,
+                              torch.bfloat16)
+    frames = np.stack([png.read_png(r.image_path) for r in imdb
+                       if (r.im_h, r.im_w) == EVAL_SIZES[0]][:b])
+    p2 = np.stack([r.p2 for r in imdb if (r.im_h, r.im_w) ==
+                   EVAL_SIZES[0]][:b]).astype(np.float32)
+
+    def on_dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    args = (on_dev(frames, torch.uint8), on_dev(cfg.image_means),
+            on_dev(cfg.image_stds), on_dev(rois), on_dev(rois_3d), on_dev(p2),
+            on_dev(np.linalg.inv(p2)),
+            on_dev(np.full((b,), 512 / EVAL_SIZES[0][0], np.float32)),
+            on_dev(np.zeros(13)), on_dev(np.ones(13)))
+    served_ms = wall_ms(lambda: infer(*args), TIMED)
+
+    def enqueue_ms(fn):
+        """Median host time of one call started on an idle card: the
+        launches' cost, or the device time once the launch queue fills."""
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    enqueue = enqueue_ms(lambda: infer(*args))
+    # the same kernels at 128x416 (1/17 of the pixels): the launches alone
+    rois_s = locate_anchors(priors, (128 // 16, 416 // 16), 16)
+    infer_s = tester.make_infer(model, cfg.detect_config(), 128, 416,
+                                torch.bfloat16)
+    args_s = (*args[:3], on_dev(rois_s),
+              on_dev(priors[rois_s[:, 4].astype(np.int64), 4:]), *args[5:7],
+              on_dev(np.full((b,), 128 / EVAL_SIZES[0][0], np.float32)),
+              *args[8:])
+    infer_s(*args_s)
+    enqueue_small = enqueue_ms(lambda: infer_s(*args_s))
+    # the same loop with the frames' decode served from the mmap cache
+    # (the warm-up pass fills it): what the loop reaches without PNG decode
+    cache = os.path.join(EVAL_DIR, "cache")
+    loop(imdb, raw_cache_dir=cache)
+    cached = loop(long_imdb, raw_cache_dir=cache)
+
+    def rate(st):
+        wall = st["wall_s"]
+        return (f"{st['images'] / wall:.2f} img/s over {st['images']} "
+                f"frames ({wall * 1e3:.1f} ms), a batch in flight on the "
+                f"card {st['busy_s'] / wall:.1%} of the loop's wall")
+
+    print(f"eval loop: grouped, bf16, batch {b}, {len(EVAL_SIZES)} sizes, "
+          f"after a warm-up pass: the tree {rate(stats)}; the tree x "
+          f"{EVAL_REPEAT} {rate(steady)}; the tree x {EVAL_REPEAT} with the "
+          f"decode cache warm {rate(cached)}; make_infer serving a "
+          f"resident batch of {b} {EVAL_SIZES[0]} frames: "
+          f"{b / served_ms * 1e3:.2f} img/s ({served_ms:.2f} ms/batch); one "
+          f"call from an idle card returns to the host after {enqueue:.2f} "
+          f"ms, at 128x416 after {enqueue_small:.2f} ms (median of 5) "
+          f"{stamp}", flush=True)
+
+    # where the loop's host time goes: decode split, the copy of one batch,
+    # the evaluator
+    inflate_ms, unfilter_ms = [], []
+    for r in imdb:
+        with open(r.image_path, "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        shape, idat = png.read_chunks(data, r.image_path)
+        raw = png.inflate(idat, shape, r.image_path)
+        t1 = time.perf_counter()
+        png.unfilter(raw, shape, r.image_path)
+        t2 = time.perf_counter()
+        inflate_ms.append((t1 - t) * 1e3)
+        unfilter_ms.append((t2 - t1) * 1e3)
+    pinned = torch.empty((b, *EVAL_SIZES[0], 3), dtype=torch.uint8,
+                         pin_memory=True)
+    gpu = torch.empty_like(pinned, device=dev)
+    h2d = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gpu.copy_(pinned, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        h2d.append(start.elapsed_time(end))
+    t = time.perf_counter()
+    evaluate_kitti_results_verbose(
+        loop_dir, os.path.join(root, "validation", "label_2"),
+        log_fn=lambda s: None)
+    eval_s = time.perf_counter() - t
+    print(f"eval host: decode ms a frame (median, one thread) inflate "
+          f"{np.median(inflate_ms):.3f} + unfilter "
+          f"{np.median(unfilter_ms):.3f}; host-to-device "
+          f"{np.median(h2d):.3f} ms a batch of {b} {EVAL_SIZES[0]} frames "
+          f"({pinned.numel() / 1e6:.1f} MB, pinned); the evaluator "
+          f"(main + side pass) {eval_s:.2f} s {stamp}", flush=True)
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -776,15 +1258,19 @@ def main():
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     sources = ("greedy_nms.cu", "dense_block.cu", "iou_prune.cu",
-               "group_leaders.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc per source
+               "group_leaders.cu", "png_unfilter.cpp")
+    # one compiler per source, and the C++ evaluator (eval/Makefile) beside
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        evaluator = pool.submit(ensure_binary)
         libs = list(pool.map(_build.build, sources))
+        evaluator = evaluator.result()
     _build.greedy_nms_lib()
     _build.dense_block_lib()
     _build.iou_prune_lib()
     _build.group_leaders_lib()
-    print(f"build: nvcc {' + '.join(sources)} -> "
-          f"{', '.join(lib.name for lib in libs)} in "
+    _build.png_unfilter_lib()
+    print(f"build: nvcc / c++ {' + '.join(sources)} -> "
+          f"{', '.join(lib.name for lib in libs)}, and {evaluator}, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
@@ -1070,8 +1556,9 @@ def main():
     operator_phase(dev, flush, stamp)
     groomed_test_phase(stamp)
     train_launches = train_phase(stamp)
+    eval_phase(dev, flush, stamp)
 
-    # -- 12. results ----------------------------------------------------------
+    # -- 13. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,

@@ -221,6 +221,31 @@ class ExperimentConfig:
                       for k, v in raw.items()})
 
 
+def apply_overrides(cfg: ExperimentConfig,
+                    items: Sequence[str]) -> ExperimentConfig:
+    """Apply ``key=value`` CLI overrides, parsed as Python literals
+    (``--set lr=0.008 --set batch_size=8``; a value that is not a literal is
+    kept as a string).  Unknown fields and malformed items raise
+    ``ValueError`` with the nearby valid names."""
+    import ast
+    valid = {f.name for f in dataclasses.fields(cfg)}
+    updates = {}
+    for item in items:
+        key, sep, raw = item.partition("=")
+        if not sep:
+            raise ValueError(f"bad override {item!r}: expected KEY=VALUE")
+        if key not in valid:
+            near = sorted(v for v in valid if key.split("_")[0] in v)[:5]
+            raise ValueError(
+                f"unknown config field {key!r}" +
+                (f" (did you mean one of {near}?)" if near else ""))
+        try:
+            updates[key] = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            updates[key] = raw  # bare strings: --set lr_policy=step
+    return dataclasses.replace(cfg, **updates)
+
+
 def config_names():
     """Names of the experiment configs shipped as JSON."""
     return sorted(p.stem for p in CONFIG_DIR.glob("*.json"))

@@ -5,10 +5,15 @@ uint8 frames -> optional horizontal flip -> bilinear resize to the target
 height (width scaled by the same factor, rounded) -> crop or zero-pad the
 width to the fixed crop -> /255 -> per-channel mean/std.  The reference's
 Resize semantics: padding is added before normalisation.
+
+``preprocess_images`` takes a batch of one size; ``preprocess_images_dynamic``
+takes frames of several sizes, edge-padded into one buffer
+(``pad_image_edge``), and resamples each by its own scale.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,3 +49,80 @@ def preprocess_images(images, mirror, means, stds, *, target_h, crop_w,
     x = (x / 255.0 - means[:, None, None]) / stds[:, None, None]
     x = x.contiguous(memory_format=torch.channels_last)
     return x.to(out_dtype) if out_dtype is not None else x
+
+
+def _resample_weights(m_buf, n_out, m_true, n_true):
+    """[B, m_buf, n_out] linear-resample weights for images occupying the
+    first ``m_true[b]`` samples of an ``m_buf`` buffer, resized to
+    ``n_true[b]`` of ``n_out`` output samples (the rest zeroed).
+
+    ``m_true`` and ``n_true`` are [B] f32 tensors.  The weights are
+    ``jax.image.resize``'s antialiased triangle kernel over the in-range
+    taps, renormalised, with out-of-range output samples zeroed: the
+    formula of ``groomed_nms_tpu/data/augment.py::_resample_weights``
+    with a batch dimension.
+    """
+    dev = m_true.device
+    m_true = m_true.float()[:, None, None]
+    n_true = n_true.float()[:, None, None]
+    inv_scale = m_true / n_true
+    kernel_scale = torch.clamp(inv_scale, min=1.0)  # low-pass when shrinking
+    out_i = torch.arange(n_out, dtype=torch.float32, device=dev)[None, None]
+    sample_f = (out_i + 0.5) * inv_scale - 0.5              # [B, 1, n_out]
+    j = torch.arange(m_buf, dtype=torch.float32, device=dev)[None, :, None]
+    w = torch.clamp(1.0 - (sample_f - j).abs() / kernel_scale, min=0.0)
+    w = w * (j < m_true)               # buffer padding contributes nothing
+    tot = w.sum(1, keepdim=True)
+    w = torch.where(tot.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(tot != 0.0, tot, 1.0), 0.0)
+    valid = ((sample_f >= -0.5) & (sample_f <= m_true - 0.5)
+             & (out_i < n_true))
+    return w * valid
+
+
+def preprocess_images_dynamic(images, src_hw, means, stds, *, target_h,
+                              crop_w, out_dtype=None):
+    """Mixed-size preprocess: uint8 [B, H0max, W0max, 3] buffers, each
+    holding an image of true size ``src_hw[b] = (h, w)`` in its top-left
+    corner -> normalised [B, 3, target_h, crop_w] (``channels_last``), as
+    ``preprocess_images`` gives it for each size alone.
+
+    Each image is resampled by its own ``target_h / h`` factor through
+    ``_resample_weights`` matrices, its width to ``round(w * scale)``
+    columns and then zero-padded or cropped to ``crop_w``; the buffer's
+    padding is ignored.  The two products run in f64 and are rounded to
+    f32: at least as precise as JAX's f32 products at
+    ``Precision.HIGHEST``, and out of reach of the global TF32 settings
+    (which no f64 product uses), so nothing here reads or sets them.
+    """
+    b, h0, w0, _ = images.shape
+    x = images.double()
+    hw = src_hw.float()
+    h, w = hw[:, 0], hw[:, 1]
+    new_w = torch.round(w * (target_h / h))
+    wh = _resample_weights(h0, target_h, h, torch.full_like(h, target_h))
+    ww = _resample_weights(w0, crop_w, w, new_w)
+    x = torch.einsum("bhwc,bwj->bhjc", x, ww.double())
+    x = torch.einsum("bhjc,bhi->bijc", x, wh.double()).float()
+    means = torch.as_tensor(means, dtype=torch.float32, device=x.device)
+    stds = torch.as_tensor(stds, dtype=torch.float32, device=x.device)
+    x = ((x / 255.0 - means) / stds).permute(0, 3, 1, 2)  # channels_last
+    return x.to(out_dtype) if out_dtype is not None else x
+
+
+def pad_image_edge(img, h0, w0):
+    """Place ``img`` into an [h0, w0, 3] numpy buffer, edge-replicating into
+    the padding (``preprocess_images_dynamic`` ignores it; replication
+    keeps the buffer safe for any other reader).  Raises ``ValueError``
+    when ``img`` does not fit."""
+    h, w = img.shape[:2]
+    if h > h0 or w > w0:
+        raise ValueError(
+            f"image ({h}, {w}) exceeds the target plane ({h0}, {w0})")
+    out = np.empty((h0, w0, 3), img.dtype)
+    out[:h, :w] = img
+    if h < h0:
+        out[h:, :w] = img[-1:]
+    if w < w0:
+        out[:, w:] = out[:, w - 1:w]
+    return out

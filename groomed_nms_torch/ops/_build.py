@@ -1,10 +1,11 @@
-"""Build and load the CUDA C++ kernels of ``groomed_nms_torch/csrc``.
+"""Build and load the native code of ``groomed_nms_torch/csrc``.
 
-``nvcc`` compiles each source into a shared library with a plain C
-interface under ``build/groomed_nms_torch/`` at the checkout's root, at
-first use; ``ctypes`` loads it.  The library's file name carries a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.  Nothing here runs at import time.
+Each source becomes a shared library with a plain C interface under
+``build/groomed_nms_torch/`` at the checkout's root, at first use; ``ctypes``
+loads it.  ``nvcc`` compiles the CUDA kernels (``*.cu``), the host C++
+compiler the host routines (``*.cpp``: the PNG unfilter).  The library's
+file name carries a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "groomed_nms_torch"
 # plain version's do)
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 
 def _nvcc():
@@ -40,19 +42,33 @@ def _nvcc():
                        "toolkit (on PATH or under /usr/local/cuda)")
 
 
+def _host_cxx():
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the PNG "
+                       "unfilter needs one")
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` into a shared library; return its path.
 
-    The hash covers the source, the headers (``*.cuh``) beside it and the
-    flags.  The compiler's output (``-Xptxas -v``: registers, shared memory
-    and spills of every kernel) is kept beside the library as
-    ``<name>.log``.
+    A ``.cu`` source goes to ``nvcc`` with ``FLAGS``, a ``.cpp`` source to
+    the host compiler with ``HOST_FLAGS``.  The hash covers the source, the
+    CUDA headers (``*.cuh``) beside it and the flags.  The compiler's output
+    (for nvcc, ``-Xptxas -v``: registers, shared memory and spills of every
+    kernel) is kept beside the library as ``<name>.log``.
     """
     src = CSRC / source
+    if src.suffix == ".cu":
+        compiler, flags = _nvcc(), FLAGS
+    else:
+        compiler, flags = _host_cxx(), HOST_FLAGS
     digest = hashlib.sha1(src.read_bytes())
     for header in sorted(src.parent.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
     if lib.exists():
         return lib
@@ -60,11 +76,12 @@ def build(source: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([compiler, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{Path(compiler).name} failed on {src}:\n"
+                               f"{proc.stderr}")
         os.replace(tmp, lib)           # atomic: concurrent builds agree
     finally:
         if os.path.exists(tmp):
@@ -110,4 +127,14 @@ def dense_block_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dense_block_eval.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.dense_block_eval.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def png_unfilter_lib():
+    """The host PNG unfilter library with its C entry's signature declared."""
+    lib = ctypes.CDLL(str(build("png_unfilter.cpp")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.png_unfilter.argtypes = [p, p, i, i, i]
+    lib.png_unfilter.restype = ctypes.c_int
     return lib

@@ -1,2 +1,2 @@
-"""Training runtime: LR schedules, the optimizer, the train step
-(counterpart of ``groomed_nms_tpu/training``)."""
+"""Training runtime: LR schedules, the optimizer, the train step and the
+checkpoint format (counterpart of ``groomed_nms_tpu/training``)."""

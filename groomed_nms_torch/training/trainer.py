@@ -52,6 +52,19 @@ class ClippedSGD:
         self.acc = [torch.zeros_like(p) for p in self.params] \
             if self.batch_skip > 1 else None
 
+    def state_dict(self):
+        """The update counts and the momentum (and accumulation) buffers,
+        in parameter order."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "trace": list(self.trace), "acc": self.acc}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        self.count, self.mini_step = state["count"], state["mini_step"]
+        torch._foreach_copy_(self.trace, state["trace"])
+        if self.acc is not None and state["acc"] is not None:
+            torch._foreach_copy_(self.acc, state["acc"])
+
     def zero_grad(self):
         for p in self.params:
             p.grad = None

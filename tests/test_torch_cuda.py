@@ -8,6 +8,7 @@ on a machine without JAX it runs on its own:
 """
 
 import copy
+import os
 
 import numpy as np
 import pytest
@@ -504,3 +505,212 @@ def test_train_step_on_cuda_matches_cpu(cuda):
         if ref.is_floating_point():
             err = (p_g[k] - ref).abs().max()
             assert err <= 1e-4 * ref.abs().max(), k
+
+
+# -- the evaluation loop ------------------------------------------------------
+
+def _eval_run(root, seed=0, n=6):
+    """A tiny_synthetic split of two sizes, a seeded tiny model, its anchors
+    and the tester's arguments."""
+    import dataclasses
+
+    from groomed_nms_torch.anchors import generate_anchor_templates
+    from groomed_nms_torch.config import load_config
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.data.synthetic import (crop_to_sizes,
+                                                  make_synthetic_kitti)
+    make_synthetic_kitti(root, "validation", n, im_h=96, im_w=320, seed=seed)
+    crop_to_sizes(root, "validation", [(96, 320), (72, 240)])
+    cfg = dataclasses.replace(load_config("tiny_synthetic"), score_thres=0.0)
+    rs = np.random.default_rng(seed)
+    scales = np.exp(np.linspace(np.log(16), np.log(64), 4))
+    priors = np.concatenate(
+        [generate_anchor_templates(scales, (0.5, 1.0, 1.5), 16),
+         np.abs(rs.normal(size=(12, 7))) + 1.0], 1)
+    priors[:, 4] = 20.0
+    rois = locate_anchors(priors, (6, 20), 16)
+    model = init_weights(RPN3D(cfg.rpn_config(12)),
+                         torch.Generator().manual_seed(seed))
+    _perturb_(model, seed)
+    return cfg, model, rois, priors[rois[:, 4].astype(int), 4:], \
+        build_imdb(root, "validation")
+
+
+def _txt(results_dir):
+    out = {}
+    for name in sorted(os.listdir(os.path.join(results_dir, "data"))):
+        with open(os.path.join(results_dir, "data", name)) as f:
+            out[name] = [(p[0], np.array([float(v) for v in p[1:]]))
+                         for p in (ln.split() for ln in f.read().splitlines())]
+    return out
+
+
+def _same_rows(got, want):
+    """Same files, rows and classes, numbers within 1e-3 + 1e-4 * |x|."""
+    assert sorted(got) == sorted(want)
+    for name, rows in want.items():
+        assert len(got[name]) == len(rows), name
+        for (cg, vg), (cw, vw) in zip(got[name], rows):
+            assert cg == cw, name
+            np.testing.assert_allclose(vg, vw, rtol=1e-4, atol=1e-3,
+                                       err_msg=name)
+    return sum(len(r) for r in want.values())
+
+
+@pytest.mark.parametrize("single", [False, True])
+def test_tester_on_cuda_matches_cpu(cuda, tmp_path, single):
+    """test_kitti_3d with the model on the card (pinned decode buffers, the
+    prefetch stream, the in-flight queue) writes the rows the CPU path
+    writes, f32 with TF32 off; the loop reports the card's busy time."""
+    import dataclasses
+
+    from groomed_nms_torch.eval import tester
+    cfg, model, rois, rois_3d, imdb = _eval_run(str(tmp_path / "kitti"))
+    cfg = dataclasses.replace(cfg, eval_single_program=single)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        stats = {}
+        for device in ("cpu", cuda):
+            tester.test_kitti_3d(
+                cfg, copy.deepcopy(model).to(device), rois, rois_3d,
+                np.zeros(13), np.ones(13), imdb, str(tmp_path / str(device)),
+                batch_size=4, skip_eval=True, loop_stats=stats)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert _same_rows(_txt(str(tmp_path / "cuda")),
+                      _txt(str(tmp_path / "cpu"))) > 0
+    assert stats["images"] == 6 and 0 < stats["busy_s"] <= stats["wall_s"]
+
+
+def test_tester_in_flight_batches_land_on_their_ids(cuda, tmp_path):
+    """Batches whose device time differs widely (a spin of a random length
+    queued before each forward) and decodes that finish in another order
+    than they started (a random host delay per frame): every frame's rows
+    are the ones the CPU path writes for that frame."""
+    import threading
+    import time
+
+    from groomed_nms_torch.data import pipeline
+    from groomed_nms_torch.eval import tester
+    cfg, model, rois, rois_3d, imdb = _eval_run(str(tmp_path / "kitti"),
+                                                seed=1, n=14)
+    tester.test_kitti_3d(cfg, copy.deepcopy(model), rois, rois_3d,
+                         np.zeros(13), np.ones(13), imdb,
+                         str(tmp_path / "cpu"), batch_size=2, skip_eval=True)
+
+    class Slow(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+            self.rs = np.random.default_rng(3)
+
+        def forward(self, x):
+            torch.cuda._sleep(int(self.rs.integers(1, 40)) * 1_000_000)
+            return self.inner(x)
+
+    load = pipeline.load_image_cached
+    rs = np.random.default_rng(4)
+    lock = threading.Lock()
+
+    def jittered(*args, **kwargs):
+        with lock:
+            delay = rs.uniform(0, 0.02)
+        time.sleep(delay)
+        return load(*args, **kwargs)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    pipeline.load_image_cached = jittered
+    try:
+        tester.test_kitti_3d(cfg, Slow(copy.deepcopy(model).to(cuda)), rois,
+                             rois_3d, np.zeros(13), np.ones(13), imdb,
+                             str(tmp_path / "cuda"), batch_size=2,
+                             skip_eval=True)
+    finally:
+        pipeline.load_image_cached = load
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert _same_rows(_txt(str(tmp_path / "cuda")),
+                      _txt(str(tmp_path / "cpu"))) > 0
+
+
+def test_pinned_buffer_is_not_reused_while_its_copy_is_in_flight(cuda):
+    """The loop frees each batch's pinned buffer right after queueing its
+    copy; PyTorch's host allocator must not hand that memory out again
+    before the copy has run (here the copy waits ~0.1 s behind a spin on
+    its stream), or the next batch's decode would overwrite it."""
+    n = 8 << 20
+    stream = torch.cuda.Stream()
+    src = torch.empty(n, dtype=torch.uint8, pin_memory=True).fill_(1)
+    ptr = src.data_ptr()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(100_000_000)
+        dst = src.to(cuda, non_blocking=True)
+    del src
+    again = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    assert again.data_ptr() != ptr
+    again.fill_(2)
+    torch.cuda.synchronize()
+    assert bool((dst == 1).all())
+
+
+def test_device_prefetch_on_cuda(cuda):
+    """Items copied on the prefetch stream arrive intact and in order while
+    the consumer's stream is busy, and an error in the producer surfaces."""
+    from groomed_nms_torch.data.pipeline import device_prefetch
+
+    def items():
+        for i in range(6):
+            t = torch.empty((1 << 20,), dtype=torch.int32, pin_memory=True)
+            t.fill_(i)
+            yield i, (t, torch.tensor([i]))
+
+    for i, (big, small) in device_prefetch(items(), cuda):
+        torch.cuda._sleep(10_000_000)
+        assert big.device.type == "cuda" and small.device.type == "cuda"
+        assert int(small) == i and bool((big == i).all())
+
+    def failing():
+        yield 0, (torch.zeros(1),)
+        raise RuntimeError("decode failed")
+
+    with pytest.raises(RuntimeError, match="decode failed"):
+        list(device_prefetch(failing(), cuda))
+
+
+# the dynamic resample against the static one: PyTorch's resize forms a
+# source coordinate with one rounding, the JAX-formula weights with two
+# (1023.6374 against 1023.6373 at output column 1398 of 1242 -> 1696), so
+# the two may be one f32 step apart (2^-13 between 1024 and 2048); times the
+# largest pixel step (255/255) over the smallest std (0.224) that is 5.4e-4
+# of a normalised value, on the CPU as on the card.  Below 512 source
+# pixels the static resize's own 1e-4 holds.
+@pytest.mark.parametrize("shape,target,atol", [
+    ((2, 128, 416, 3), (64, 224), 1e-4),
+    ((8, 375, 1242, 3), (512, 1760), 6e-4)])
+def test_dynamic_preprocess_on_cuda_matches_static(cuda, shape, target,
+                                                   atol):
+    """Full buffers of noise: the dynamic resample on the card equals its
+    CPU run within 1e-5 and the static resize within ``atol``, with the
+    cuBLAS TF32 flag on, which its products must not use; the flag keeps
+    its value."""
+    from groomed_nms_torch.data.augment import (preprocess_images,
+                                                preprocess_images_dynamic)
+
+    g = torch.Generator().manual_seed(shape[1])
+    imgs = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+    hw = torch.tensor([shape[1:3]] * shape[0], dtype=torch.float32)
+    means, stds = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    size = dict(target_h=target[0], crop_w=target[1])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = preprocess_images_dynamic(imgs.to(cuda), hw.to(cuda), means,
+                                        stds, **size)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = preprocess_images_dynamic(imgs, hw, means, stds, **size)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-5)
+    want = preprocess_images(imgs.to(cuda), None, means, stds, **size)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)

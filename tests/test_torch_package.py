@@ -16,9 +16,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_package_imports_without_jax():
-    """Every module of groomed_nms_torch imports with jax and flax absent
-    from sys.modules.  A subprocess, because this process (conftest.py)
-    has imported jax already."""
+    """Every module of groomed_nms_torch imports with jax, flax, the JAX
+    package, triton, Pillow and matplotlib absent from sys.modules (the
+    GPU machine has no JAX, Pillow or matplotlib).  A subprocess, because
+    this process (conftest.py) has imported jax already."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import groomed_nms_torch as p\n"
@@ -26,13 +27,14 @@ def test_package_imports_without_jax():
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'triton'))\n"
+        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'triton', 'PIL', "
+        "'matplotlib'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 24
 
 
 def test_config_jsons_regenerate_identically(tmp_path):
@@ -89,3 +91,17 @@ def test_derived_configs_match_jax(name):
 def test_unknown_config_raises():
     with pytest.raises(ValueError):
         config.load_config("no_such_config")
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py runs on the GPU machine: importing it pulls in none of
+    the modules that machine lacks."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', 'matplotlib'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
