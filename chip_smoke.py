@@ -89,7 +89,26 @@ Phases, in order; any failure raises and exits non-zero:
                 the loop again with the decode cache warm, decode ms
                 (inflate, unfilter), the copy of a batch and the evaluator's
                 seconds;
- 13. the kernels JSON line, then the last line:
+ 13. train entry -- scripts/train_torch.py's main() over a synthetic KITTI
+                tree (32 training, 16 validation frames at 375x1242): stage
+                1 (kitti_3d_warmup as shipped: DenseNet-121, 512x1760,
+                batch 2, f32; 20 steps): anchors.npz learned on the card,
+                its anchors identical to prepare_anchors on the CPU path
+                and its statistics within STATS_RTOL, the loss finite and
+                every weight moved, no kernel launched; stage 2
+                (groomed_nms warm-started from stage 1, 20 steps, the
+                snapshot evaluation on) under torch.profiler: only the
+                acceptance branch left fresh and the log saying so, K3 and
+                the grouping once a step, K1 and K2 once an evaluation
+                batch, a txt file per val frame and the evaluator's AP
+                dict; the same run extended to 40 steps resumes at 20 and
+                metrics.csv continues; ms/step, img/s through the loader,
+                the host_wait share and the peak memory of each stage, the
+                prepare_anchors seconds, the train wall at batch 2 and 8;
+                3 loop steps of tiny_synthetic (BatchNorm perturbed) on the
+                card against the CPU path (f64 asserted, f32 with TF32 off
+                reported);
+ 14. the kernels JSON line, then the last line:
      {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
@@ -1243,6 +1262,285 @@ def eval_phase(dev, flush, stamp):
           f"(main + side pass) {eval_s:.2f} s {stamp}", flush=True)
 
 
+# the train entry point (phase 13): a synthetic KITTI tree with a training
+# and a validation split at KITTI's size; the paper's two stages through
+# scripts/train_torch.py at full width; card-vs-CPU rules fixed here.  The
+# bbox statistics: stds at rtol 1e-6, means at 1e-6 of |mean| + std (the
+# log columns' roundings differ by a step between devices, and a mean that
+# cancels to 1e-3 of its column's spread carries them at 1e-3 of its size).
+# The tiny loop, BatchNorm perturbed as in phase 11 (perturb_; from
+# init_weights a BatchNorm bias starts at 0, so its largest magnitude after
+# 3 steps is the updates themselves, and the stem's cancelling BatchNorm
+# gradients put 1e-3 of that between two devices' f32 losses): parameters
+# within 1e-4 of each tensor's max, asserted with the parameters and the
+# trunk in f64 (the loss is f32 by design, as JAX's is), reported in f32
+# with TF32 off (9.6e-05 in a first run: too close to the rule for cuDNN
+# algorithms that may change between runs)
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_train")
+TRAIN_FRAMES, VAL_FRAMES, TRAIN_STEPS, RESUME_STEPS = 32, 16, 20, 40
+STATS_RTOL, TINY_LOOP_REL, TINY_STEPS = 1e-6, 1e-4, 3
+STEADY_FROM = 5                       # steps left out of the steady ms/step
+
+
+def stats_close(got, want, rtol=STATS_RTOL):
+    """(means, stds) against a reference: (max |err| / (|mean| + std) of
+    the means, max relative error of the stds), asserted within ``rtol``."""
+    (gm, gs), (wm, ws) = got, want
+    mean_err = float((np.abs(gm - wm) / (np.abs(wm) + ws)).max())
+    std_err = float((np.abs(gs - ws) / ws).max())
+    assert mean_err <= rtol and std_err <= rtol, (mean_err, std_err)
+    return mean_err, std_err
+
+
+def train_rate(summary):
+    """(ms/step over the steps after STEADY_FROM, img/s, host_wait share of
+    the loop's wall) of one train_torch.main() run."""
+    ends, n = summary["step_end_s"], summary["steps"]
+    k = min(STEADY_FROM, n - 1)
+    ms = (summary["train_s"] - ends[k - 1]) / (n - k) * 1e3 if k else \
+        summary["train_s"] / n * 1e3
+    return (ms, summary["batch_size"] / ms * 1e3,
+            summary["host_wait_s"] / summary["train_s"])
+
+
+def count_kernels(prof, start_marker="spin_kernel"):
+    """{kernel name: launches} of a torch.profiler trace, from the last
+    spin kernel on (a trace can hold the previous trace's kernels)."""
+    from torch.autograd import DeviceType
+    kernels_ = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    start = max((e.time_range.start for e in kernels_
+                 if start_marker in e.name), default=float("-inf"))
+    names = ("head_scores", "nms_mask", "nms_sweep", "iou_prune_kernel",
+             "group_bits", "group_sweep")
+    return {n: sum(1 for e in kernels_ if n in e.name
+                   and e.time_range.start >= start) for n in names}
+
+
+def tiny_loop(script, root, device, dtype):
+    """TINY_STEPS steps of tiny_synthetic through train_torch's pieces
+    (prepare_anchors, build_training, TrainLoader, device_prefetch) on
+    ``device`` with parameters in ``dtype``, BatchNorm perturbed
+    (``perturb_``); the state_dict on the CPU."""
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.data.pipeline import (TrainLoader, device_prefetch,
+                                                 prepare_anchors)
+    cfg = load_config("tiny_synthetic")
+    imdb = build_imdb(root, "training")
+    anchors, means, stds = prepare_anchors(cfg, imdb, device=device)
+    run = script.build_training(cfg, anchors, means, stds, device,
+                                param_dtype=dtype)
+    perturb_(run.model, seed=5)
+    loader = TrainLoader(imdb, cfg, seed=cfg.rng_seed, prefetch=1)
+    batches = device_prefetch(script.host_tensors(
+        loader, pin=torch.device(device).type == "cuda"), device)
+    try:
+        for _ in range(TINY_STEPS):
+            run.step(run.state, script.raw_batch(next(batches)[1]))
+    finally:
+        batches.close()
+        loader.close()
+    return {k: v.detach().cpu() for k, v in run.model.state_dict().items()}
+
+
+def train_entry_phase(dev, stamp):
+    """13: scripts/train_torch.py, the paper's two stages at full width,
+    checked and timed (see the module docstring)."""
+    import importlib.util
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.data.pipeline import prepare_anchors
+    from groomed_nms_torch.data.synthetic import make_synthetic_kitti
+    from groomed_nms_torch.training.checkpoint import checkpoint_path
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    data_root = os.path.join(TRAIN_DIR, "data")
+    out_root = os.path.join(TRAIN_DIR, "output")
+    root = os.path.join(data_root, "kitti_split1")
+    tiny_root = os.path.join(TRAIN_DIR, "tiny")
+    t0 = time.perf_counter()
+    classes = ("Car", "Pedestrian", "Cyclist")
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda a: make_synthetic_kitti(*a[:3], seed=a[3],
+                                                     classes=classes, **a[4]),
+                      [(root, "training", TRAIN_FRAMES, 21, {}),
+                       (root, "validation", VAL_FRAMES, 22, {}),
+                       (tiny_root, "training", 10, 23,
+                        dict(im_h=96, im_w=320))]))
+    print(f"train entry: a tree of {TRAIN_FRAMES} training and {VAL_FRAMES} "
+          f"validation frames at 375x1242 (and 10 at 96x320) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "train_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    base = ["--data-root", data_root, "--output", out_root, "--set",
+            "display=5"]
+    names = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+             "group_leaders")
+
+    def run(*argv):
+        for n in names:
+            getattr(kernels, n).launches = 0
+        t = time.perf_counter()
+        summary = script.main([*base, *argv])
+        summary["wall_s"] = time.perf_counter() - t
+        summary["counts"] = {n: getattr(kernels, n).launches for n in names}
+        torch.cuda.empty_cache()
+        return summary
+
+    def rate_line(summary):
+        ms, ips, wait = train_rate(summary)
+        first = summary["start_step"] + STEADY_FROM + 1
+        return (f"{ms:.2f} ms/step over steps {first}-"
+                f"{summary['start_step'] + summary['steps']} (after "
+                f"{STEADY_FROM} warm-up steps), {ips:.2f} img/s through the "
+                f"loader, host_wait {wait:.2%} of the loop's wall, peak "
+                f"memory after the first step "
+                f"{summary['peak_bytes'] / 1e9:.2f} GB")
+
+    # -- stage 1: kitti_3d_warmup as shipped (f32, batch 2), no NMS in loss
+    warm_dir = os.path.join(out_root, "kitti_3d_warmup")
+    s1 = run("--config", "kitti_3d_warmup", "--max-iter", str(TRAIN_STEPS),
+             "--set", "do_test=False")
+    cfg1 = load_config("kitti_3d_warmup")
+    t = time.perf_counter()
+    cpu_stats = prepare_anchors(cfg1, build_imdb(root, "training"),
+                                device="cpu")
+    cpu_anchor_s = time.perf_counter() - t
+    z = np.load(os.path.join(warm_dir, "anchors.npz"))
+    assert np.array_equal(z["anchors"], cpu_stats[0]), \
+        "anchors learned on the card differ from the CPU path's"
+    mean_err, std_err = stats_close((z["bbox_means"], z["bbox_stds"]),
+                                    cpu_stats[1:])
+    ckpt = torch.load(checkpoint_path(warm_dir, TRAIN_STEPS),
+                      map_location="cpu", weights_only=True)["model"]
+    fresh = RPN3D(cfg1.rpn_config(z["anchors"].shape[0]))
+    init_weights(fresh, torch.Generator().manual_seed(cfg1.rng_seed))
+    still = [k for k, v in fresh.state_dict().items()
+             if k.endswith("weight") and torch.equal(v, ckpt[k])]
+    with open(os.path.join(warm_dir, "metrics.csv")) as f:
+        rows = f.read().splitlines()
+    totals = [float(r.split(",")[rows[0].split(",").index("total")])
+              for r in rows[1:]]
+    print(f"train entry (stage 1): kitti_3d_warmup, DenseNet-121, batch 2, "
+          f"512x1760 f32, {s1['steps']} steps: {rate_line(s1)}; "
+          f"prepare_anchors {s1['anchors_s']:.2f} s on the card "
+          f"({cpu_anchor_s:.2f} s on the CPU path), anchors "
+          f"{z['anchors'].shape} identical to the CPU path's, means max "
+          f"|err|/(|m|+s) {mean_err:.2e}, stds max rel err {std_err:.2e} "
+          f"(tol {STATS_RTOL:g}); loss (total) by window "
+          f"{[round(v, 4) for v in totals]}; launches {s1['counts']}; "
+          f"{len(still)} weights unmoved {stamp}", flush=True)
+    assert s1["step"] == TRAIN_STEPS and len(totals) == TRAIN_STEPS // 5
+    assert all(np.isfinite(totals)), "non-finite stage-1 loss"
+    assert not still, f"weights that did not move: {still[:3]}"
+    assert s1["counts"] == dict.fromkeys(names, 0), \
+        "stage 1 (no NMS in the loss, no evaluation) launched a kernel"
+
+    # -- stage 2: groomed_nms warm-started from stage 1, GrooMeD in the
+    # loss, the snapshot evaluation at the last step, under the profiler
+    pre = ("--set", f"pretrained={warm_dir!r}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        s2 = run("--config", "groomed_nms", "--max-iter", str(TRAIN_STEPS),
+                 *pre)
+        torch.cuda.synchronize()
+    traced = count_kernels(prof)
+    del prof
+    g_dir = os.path.join(out_root, "groomed_nms")
+    with open(os.path.join(g_dir, "train.log")) as f:
+        log_text = f.read()
+    rep = s2["restore"]
+    val = build_imdb(root, "validation")
+    n_eval = -(-len(val) // load_config("groomed_nms").test_batch_size)
+    txts = sorted(os.listdir(os.path.join(
+        g_dir, "results", f"results_{TRAIN_STEPS}", "data")))
+    ap = s2["eval_results"].get(TRAIN_STEPS)
+    print(f"train entry (stage 2): groomed_nms warm-started from stage 1: "
+          f"fresh {rep['fresh']}, other shape {rep['mismatched']}, dropped "
+          f"{rep['dropped']}; launches in training {s2['launches']['train']},"
+          f" in the snapshot evaluation {s2['launches']['eval']}; "
+          f"torch.profiler kernels {traced}; {len(txts)} txt files for "
+          f"{len(val)} val frames, evaluator ran: {isinstance(ap, dict)}; "
+          f"{s2['wall_s']:.1f} s with the profiler on", flush=True)
+    assert sorted(rep["fresh"]) == ["accept_out.bias", "accept_out.weight"]
+    assert rep["mismatched"] == [] and rep["dropped"] == []
+    assert f"warm-started from {warm_dir} (2 tensors fresh" in log_text
+    assert "copy_stats: reusing anchors/statistics" in log_text
+    assert s2["launches"]["train"] == dict(
+        fused_head_scores=0, greedy_nms=0, fused_iou_prune=TRAIN_STEPS,
+        group_leaders=TRAIN_STEPS), s2["launches"]
+    assert s2["launches"]["eval"] == dict(
+        fused_head_scores=n_eval, greedy_nms=n_eval, fused_iou_prune=0,
+        group_leaders=0), s2["launches"]
+    assert traced == dict(head_scores=n_eval, nms_mask=n_eval,
+                          nms_sweep=n_eval, iou_prune_kernel=TRAIN_STEPS,
+                          group_bits=TRAIN_STEPS,
+                          group_sweep=TRAIN_STEPS), traced
+    assert txts == [f"{r.id}.txt" for r in val] and isinstance(ap, dict)
+
+    # -- auto-resume: the same run extended to RESUME_STEPS (timed)
+    s3 = run("--config", "groomed_nms", "--max-iter", str(RESUME_STEPS),
+             *pre)
+    with open(os.path.join(g_dir, "metrics.csv")) as f:
+        iters = [r.split(",")[0] for r in f.read().splitlines()]
+    with open(os.path.join(g_dir, "train.log")) as f:
+        resumed = f"auto-resumed own checkpoint at iter {TRAIN_STEPS}" \
+            in f.read()
+    print(f"train entry (stage 2, resumed): start {s3['start_step']}, "
+          f"{s3['steps']} steps: {rate_line(s3)}; metrics.csv iters "
+          f"{iters[1:]}; launches in training {s3['launches']['train']} "
+          f"{stamp}", flush=True)
+    assert resumed and s3["start_step"] == TRAIN_STEPS
+    assert s3["step"] == RESUME_STEPS
+    assert iters == ["iter"] + [str(i) for i in range(5, RESUME_STEPS + 1,
+                                                      5)], iters
+    assert s3["launches"]["train"]["fused_iou_prune"] == \
+        RESUME_STEPS - TRAIN_STEPS
+
+    # -- the train wall at batch 2 and batch 8 (stage 1's config)
+    walls = {2: s1}
+    s8 = run("--config", "kitti_3d_warmup", "--max-iter", "10",
+             "--set", "do_test=False", "--set", "batch_size=8",
+             "--output", os.path.join(TRAIN_DIR, "output_b8"))
+    walls[8] = s8
+    print("train entry: the train wall through the loader, kitti_3d_warmup "
+          "f32 512x1760: " + "; ".join(
+              f"batch {b}: {w['train_s']:.2f} s for {w['steps']} steps, "
+              f"{rate_line(w)}" for b, w in walls.items()) + f" {stamp}",
+          flush=True)
+
+    # -- the tiny loop on the card against the CPU path
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        errs = {}
+        for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            cpu = tiny_loop(script, tiny_root, "cpu", dtype)
+            gpu = tiny_loop(script, tiny_root, dev, dtype)
+            errs[name] = max(((gpu[k] - v).abs().max() / v.abs().max()).item()
+                             for k, v in cpu.items()
+                             if v.is_floating_point() and v.abs().max() > 0)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    print(f"train entry: {TINY_STEPS} loop steps of tiny_synthetic "
+          f"(BatchNorm perturbed), card vs CPU path, max param err / max: "
+          f"f64 {errs['f64']:.3e} (tol "
+          f"{TINY_LOOP_REL:g}), f32 with TF32 off {errs['f32']:.3e} "
+          f"(reported)", flush=True)
+    assert errs["f64"] <= TINY_LOOP_REL, "the tiny loop differs on the card"
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1557,8 +1855,9 @@ def main():
     groomed_test_phase(stamp)
     train_launches = train_phase(stamp)
     eval_phase(dev, flush, stamp)
+    train_entry_phase(dev, stamp)
 
-    # -- 13. results ----------------------------------------------------------
+    # -- 14. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,

@@ -1,7 +1,12 @@
-"""Anchors: templates and their placement on the feature grid (numpy), and
-the anchor <-> ground-truth assignment of the loss (torch).
+"""Anchors: templates, learned priors and their placement on the feature grid
+(numpy on the host), the dataset's target statistics, and the anchor <->
+ground-truth assignment of the loss (torch).
 
-Counterpart of ``groomed_nms_tpu/anchors.py``.  The grid is ordered
+Counterpart of ``groomed_nms_tpu/anchors.py``.  ``learn_anchor_priors``
+matches each GT to its best template with the port's ``pairwise_iou`` (f32
+on the CPU) and averages the matched GTs' 3D columns; ``compute_bbox_stats``
+is the one-pass mean/std of per-image target rows.  The k-means refinement
+(``cluster_anchors``) is off in every shipped config and not ported.  The grid is ordered
 **(h, w, a)**, the natural unroll of an NHWC head output, which is the order
 ``models/rpn_3d.py`` gives its per-anchor rows.
 """
@@ -135,3 +140,84 @@ def compute_targets(rois, rois_3d, gts_2d, gts_3d, gt_labels, gt_valid,
         gt_index=gt_index, fg_mask=fg, bg_mask=bg, ols_max=ols_max,
         raw_gt_2d=torch.where(fg_col, tgt_2d, 0.0),
         raw_gt_3d=torch.where(fg_col, tgt_3d, 0.0))
+
+
+def learn_anchor_priors(templates, gts_2d, gts_3d, min_overlap=0.2,
+                        decomp_alpha=True, has_vel=False):
+    """Attach learned 3D priors to the 2D anchor templates.
+
+    ``templates`` [A, 4]; ``gts_2d`` [G, 4] valid GT boxes re-centred at
+    the anchor origin; ``gts_3d`` [G, >=16] their ``bbox_3d`` rows.  Each
+    GT goes to the template of largest IoU (when above ``min_overlap``);
+    a template's priors are the means of its GTs' projected depth (column
+    2), w3d, h3d, l3d, alpha (column 6), alpha_sin / alpha_cos
+    (``decomp_alpha``) and the non-negative velocities (``has_vel``).
+
+    Returns [A', 9 (+2 decomp) (+1 vel)] anchors
+    [x1, y1, x2, y2, z, w3d, h3d, l3d, rot, (sin, cos), (vel)], the
+    templates no GT chose dropped (all A when there is no GT).
+    """
+    a = templates.shape[0]
+    extra = 5 + (2 if decomp_alpha else 0) + (1 if has_vel else 0)
+    anchors = np.concatenate([templates, np.zeros((a, extra), np.float32)],
+                             axis=1)
+    if gts_2d.shape[0] == 0:
+        return anchors
+
+    ols = pairwise_iou(torch.from_numpy(np.asarray(templates, np.float32)),
+                       torch.from_numpy(np.asarray(gts_2d, np.float32))
+                       ).numpy()                                  # [A, G]
+    best_anchor = np.argmax(ols, axis=0)
+    best_ol = np.max(ols, axis=0)
+
+    used = np.zeros(a, bool)
+    for aind in range(a):
+        sel = (best_anchor == aind) & (best_ol > min_overlap)
+        if not sel.any():
+            continue
+        used[aind] = True
+        g = gts_3d[sel]
+        anchors[aind, 4] = g[:, 2].mean()    # cz3d_2d, the projected depth
+        anchors[aind, 5] = g[:, 3].mean()    # w3d
+        anchors[aind, 6] = g[:, 4].mean()    # h3d
+        anchors[aind, 7] = g[:, 5].mean()    # l3d
+        anchors[aind, 8] = g[:, 6].mean()    # alpha: the rotation target
+        if decomp_alpha:
+            anchors[aind, 9] = g[:, 12].mean()   # alpha_sin
+            anchors[aind, 10] = g[:, 13].mean()  # alpha_cos
+        if has_vel:
+            vel = g[:, 16]
+            vel = vel[vel >= 0]
+            if vel.size:
+                anchors[aind, 9 + 2 * decomp_alpha] = vel.mean()
+    return anchors[used]
+
+
+def compute_bbox_stats(per_image_rows, n_targets):
+    """Mean and std of foreground target rows over a dataset.
+
+    ``per_image_rows`` yields [F_i, T] rows (2D deltas then 3D deltas).
+    Accumulates in f64, each column over its finite entries only (the
+    velocity target is -inf where a track has no velocity).  Returns
+    (means [1, T], stds [1, T]); zeros and ones when no row is finite, and
+    a std of 1 for a column with fewer than two entries.
+    """
+    total = np.zeros(n_targets, np.float64)
+    s = np.zeros(n_targets, np.float64)
+    sq = np.zeros(n_targets, np.float64)
+    for rows in per_image_rows:
+        if rows.shape[0] == 0:
+            continue
+        rows = np.asarray(rows, np.float64)
+        ok = np.isfinite(rows)
+        rows = np.where(ok, rows, 0.0)
+        total += ok.sum(axis=0)
+        s += rows.sum(axis=0)
+        sq += (rows ** 2).sum(axis=0)
+    if not total.any():
+        return np.zeros((1, n_targets)), np.ones((1, n_targets))
+    cnt = np.maximum(total, 1.0)
+    means = s / cnt
+    var = np.maximum(sq / cnt - means ** 2, 1e-12)
+    stds = np.where(total > 1, np.sqrt(var), 1.0)
+    return means[None, :], stds[None, :]

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Sequence
 
+import numpy as np
+
 from .inference import DetectConfig
 from .losses.rpn_3d import LossConfig
 from .models.densenet import DenseNetConfig, tiny_densenet_config
@@ -163,6 +165,22 @@ class ExperimentConfig:
     def num_classes(self) -> int:
         return len(self.lbls) + 1
 
+    @property
+    def min_gt_h(self) -> float:
+        return self.test_scale * self.percent_anc_h[0]
+
+    @property
+    def max_gt_h(self) -> float:
+        return self.test_scale * self.percent_anc_h[1]
+
+    @property
+    def anchor_scales(self):
+        """Template heights, geometric from ``min_gt_h`` to ``max_gt_h``."""
+        base = (self.max_gt_h / self.min_gt_h) ** (
+            1.0 / (self.anchor_scales_count - 1))
+        return np.array([self.min_gt_h * base ** i
+                         for i in range(self.anchor_scales_count)])
+
     def backbone_config(self) -> DenseNetConfig:
         # torch BatchNorm momentum is the batch weight (0.1 default);
         # slow_bn overrides it, as in the reference
@@ -210,6 +228,11 @@ class ExperimentConfig:
             use_acceptance_prob_for_nms=self.use_acceptance_prob_for_nms,
             decomp_alpha=self.decomp_alpha,
         )
+
+    def dump(self, path):
+        """Write every field as JSON (``from_json`` reads it back)."""
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self), f, indent=2, default=str)
 
     @classmethod
     def from_json(cls, path) -> "ExperimentConfig":

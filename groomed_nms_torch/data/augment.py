@@ -9,13 +9,22 @@ Resize semantics: padding is added before normalisation.
 ``preprocess_images`` takes a batch of one size; ``preprocess_images_dynamic``
 takes frames of several sizes, edge-padded into one buffer
 (``pad_image_edge``), and resamples each by its own scale.
+
+The label path of the train loader runs on the host in numpy, copied from
+the JAX module: ``scale_labels`` scales the 2D boxes and projected centres
+by the resize factor, ``mirror_labels`` rewrites a record's ground truth
+for a horizontal flip.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .kitti import decompose_alpha, rot_y_to_alpha
 
 
 def preprocess_images(images, mirror, means, stds, *, target_h, crop_w,
@@ -125,4 +134,64 @@ def pad_image_edge(img, h0, w0):
         out[h:, :w] = img[-1:]
     if w < w0:
         out[:, w:] = out[:, w - 1:w]
+    return out
+
+
+def scale_labels(gts, scale_factor):
+    """Scale the 2D boxes and the projected 3D centres (columns 0-1 of
+    ``bbox_3d``) by ``scale_factor``; a record without GTs comes back as
+    it is."""
+    if not gts or len(gts.get("cls", [])) == 0:
+        return gts
+    out = dict(gts)
+    out["bbox_full"] = gts["bbox_full"] * scale_factor
+    b3 = gts["bbox_3d"].copy()
+    b3[:, 0] *= scale_factor
+    b3[:, 1] *= scale_factor
+    out["bbox_3d"] = b3
+    return out
+
+
+def mirror_labels(gts, p2_inv, image_width):
+    """Rewrite ground truth for a horizontal flip at the source resolution:
+    reflect the 2D box and the projected centre's x, negate rotY and snap
+    it to [-pi, pi], back-project the new projected centre through P2^-1
+    for the 3D centre, and recompute alpha and its decomposition.  The
+    elevation (column 11) is left as it was, as the reference leaves it.
+    """
+    if not gts or len(gts.get("cls", [])) == 0:
+        return gts
+    out = dict(gts)
+    bf = gts["bbox_full"].copy()
+    bf[:, 0] = image_width - bf[:, 0] - bf[:, 2]
+    out["bbox_full"] = bf
+
+    b3 = gts["bbox_3d"].copy()
+    for i in range(b3.shape[0]):
+        b3[i, 0] = image_width - b3[i, 0] - 1
+        rot_y = b3[i, 10]
+        rot_y = (-math.pi - rot_y) if rot_y < 0 else (math.pi - rot_y)
+        while rot_y > math.pi:
+            rot_y -= 2 * math.pi
+        while rot_y < -math.pi:
+            rot_y += 2 * math.pi
+
+        cx2d, cy2d, cz2d = b3[i, 0], b3[i, 1], b3[i, 2]
+        coord3d = p2_inv @ np.array([cx2d * cz2d, cy2d * cz2d, cz2d, 1.0])
+        alpha = rot_y_to_alpha(rot_y, coord3d[2], coord3d[0])
+        a_sin, a_cos, axis_lbl, head_lbl = decompose_alpha(alpha)
+
+        b3[i, 6] = alpha
+        b3[i, 7:10] = coord3d[:3]
+        b3[i, 10] = rot_y
+        b3[i, 12] = a_sin
+        b3[i, 13] = a_cos
+        b3[i, 14] = axis_lbl
+        b3[i, 15] = head_lbl
+    out["bbox_3d"] = b3
+    if "rotY" in gts:
+        out["rotY"] = b3[:, 10].copy()
+        out["alpha"] = b3[:, 6].copy()
+    if "center_3d" in gts:
+        out["center_3d"] = b3[:, 7:10].copy()
     return out

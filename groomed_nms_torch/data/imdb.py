@@ -1,9 +1,12 @@
-"""The image database of a KITTI split (counterpart of
-``groomed_nms_tpu/data/imdb.py``: ``ImageRecord`` and ``build_imdb``).
+"""The image database of a KITTI split and its GT rules (counterpart of
+``groomed_nms_tpu/data/imdb.py``).
 
-Image sizes come from the PNG header (``data/png.py``), not from Pillow.
-The GT filtering and batching helpers of the JAX module serve the train
-loader and are not ported yet.
+* ``ImageRecord`` and ``build_imdb``: image sizes come from the PNG header
+  (``data/png.py``), not from Pillow.
+* ``determine_ignores``, ``class_indices``, ``balance_samples`` and
+  ``pad_gt_batch``: the GT filtering, the train loader's sampling weights
+  and its fixed-shape GT batch, numpy on the host, copied from the JAX
+  module.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..losses.rpn_3d import GTBatch
 from .kitti import read_kitti_calib, read_kitti_label
 from .png import png_size
 
@@ -70,3 +74,134 @@ def build_imdb(root, split="training", ids=None, use_3d_for_2d=True,
         with open(cache_file, "wb") as f:
             pickle.dump({"meta": meta, "imdb": imdb}, f)
     return imdb
+
+
+def determine_ignores(gts, lbls, ilbls, min_gt_vis=0.99, min_gt_h=0,
+                      max_gt_h=10e10, scale_factor=1.0, use_trunc=False):
+    """(igns, rmvs) boolean arrays over a record's GT rows.
+
+    ignore = a class of ``ilbls``, too occluded (visibility < min_gt_vis),
+    a scaled 2D height outside [min_gt_h, max_gt_h], or marked in the
+    label; remove = a class in neither list.  ``use_trunc`` also ignores
+    GTs truncated beyond ``max(1 - min_gt_vis, 0)``: only the mean pass of
+    the bbox statistics sets it.
+    """
+    n = len(gts.get("cls", []))
+    igns = np.zeros(n, bool)
+    rmvs = np.zeros(n, bool)
+    if n == 0:
+        return igns, rmvs
+    heights = gts["bbox_full"][:, 3] * scale_factor
+    trunc = gts.get("trunc")
+    for i in range(n):
+        cls = gts["cls"][i]
+        ign = bool(gts["ign"][i])
+        ign |= gts["visibility"][i] < min_gt_vis
+        ign |= heights[i] < min_gt_h
+        ign |= heights[i] > max_gt_h
+        ign |= cls in ilbls
+        if use_trunc and trunc is not None:
+            ign |= trunc[i] > max(1 - min_gt_vis, 0)
+        igns[i] = ign
+        rmvs[i] = cls not in lbls and cls not in ilbls
+    return igns, rmvs
+
+
+def class_indices(gts, lbls):
+    """Class name -> 1-based index into lbls (0 reserved for background)."""
+    return np.array([lbls.index(c) + 1 if c in lbls else 0
+                     for c in gts["cls"]], np.float32)
+
+
+def balance_samples(imdb, lbls, ilbls, min_gt_vis, min_gt_h,
+                    fg_image_ratio=1.0, max_gt_h=10e10, test_scale=None):
+    """Per-image sampling weights (summing to 1) by foreground presence.
+
+    * ``fg_image_ratio < 0``: uniform;
+    * ``fg_image_ratio == 2``: proportional to each image's valid GT count;
+    * otherwise images with a valid GT share ``fg_image_ratio`` of the mass
+      uniformly and the others the rest.  Where one of the two groups is
+      empty, the other keeps its count-based weights (the reference divides
+      by zero there).
+
+    GT validity follows ``determine_ignores`` at the ``test_scale / im_h``
+    image scale (``test_scale`` None: the record's own ``scale``).
+    """
+    weights = np.ones(len(imdb))
+    if fg_image_ratio < 0:
+        return weights / weights.sum()
+    valid_counts = np.zeros(len(imdb))
+    for i, rec in enumerate(imdb):
+        if not rec.gts:
+            continue
+        scale = (test_scale / rec.im_h) if test_scale else rec.scale
+        igns, rmvs = determine_ignores(rec.gts, lbls, ilbls, min_gt_vis,
+                                       min_gt_h, max_gt_h,
+                                       scale_factor=scale)
+        valid_counts[i] = np.count_nonzero(~igns & ~rmvs)
+    weights = valid_counts.copy()
+    if fg_image_ratio != 2:
+        fg = valid_counts > 0
+        n_fg, n_bg = int(fg.sum()), int((~fg).sum())
+        if n_fg > 0:
+            weights[fg] = len(imdb) * fg_image_ratio / n_fg
+        if n_bg > 0:
+            weights[~fg] = len(imdb) * (1 - fg_image_ratio) / n_bg
+    total = weights.sum()
+    if total <= 0:
+        return np.full(len(imdb), 1.0 / max(len(imdb), 1))
+    return weights / total
+
+
+def pad_gt_batch(records_gts, p2s, scales, lbls, ilbls, min_gt_vis, min_gt_h,
+                 max_gts=64, max_igns=32, n3d_cols=None):
+    """A batch of GT dicts -> a ``GTBatch`` of fixed-shape numpy arrays.
+
+    ``records_gts`` hold augmented boxes at the network's input scale
+    (``bbox_full`` as x, y, w, h).  The first ``max_gts`` valid GTs and
+    ``max_igns`` ignore regions of each record are kept, as corner boxes.
+    ``n3d_cols`` fixes the ``bbox_3d`` width (default: the widest record);
+    narrower rows are padded with -inf, the no-velocity sentinel.
+    """
+    b = len(records_gts)
+    k3d = n3d_cols or max([g["bbox_3d"].shape[1] for g in records_gts
+                           if g and len(g.get("cls", []))], default=16)
+    gts_2d = np.zeros((b, max_gts, 4), np.float32)
+    gts_3d = np.zeros((b, max_gts, k3d), np.float32)
+    gt_labels = np.zeros((b, max_gts), np.float32)
+    gt_valid = np.zeros((b, max_gts), bool)
+    ign_2d = np.zeros((b, max_igns, 4), np.float32)
+    ign_valid = np.zeros((b, max_igns), bool)
+
+    for bi, gts in enumerate(records_gts):
+        if not gts or len(gts.get("cls", [])) == 0:
+            continue
+        igns, rmvs = determine_ignores(gts, lbls, ilbls, min_gt_vis, min_gt_h)
+        lbl_idx = class_indices(gts, lbls)
+        boxes = gts["bbox_full"].astype(np.float32)
+        corners = np.stack([boxes[:, 0], boxes[:, 1],
+                            boxes[:, 0] + boxes[:, 2] - 1,
+                            boxes[:, 1] + boxes[:, 3] - 1], axis=1)
+        val = ~igns & ~rmvs
+        ign = ~rmvs & igns
+        nv = min(int(val.sum()), max_gts)
+        ni = min(int(ign.sum()), max_igns)
+        if nv:
+            rows = gts["bbox_3d"][val][:nv].astype(np.float32)
+            if rows.shape[1] < k3d:
+                rows = np.concatenate(
+                    [rows, np.full((rows.shape[0], k3d - rows.shape[1]),
+                                   -np.inf, np.float32)], axis=1)
+            gts_2d[bi, :nv] = corners[val][:nv]
+            gts_3d[bi, :nv] = rows
+            gt_labels[bi, :nv] = lbl_idx[val][:nv]
+            gt_valid[bi, :nv] = True
+        if ni:
+            ign_2d[bi, :ni] = corners[ign][:ni]
+            ign_valid[bi, :ni] = True
+
+    return GTBatch(
+        gts_2d=gts_2d, gts_3d=gts_3d, gt_labels=gt_labels, gt_valid=gt_valid,
+        ign_2d=ign_2d, ign_valid=ign_valid,
+        p2=np.asarray(p2s, np.float32),
+        scale=np.asarray(scales, np.float32))

@@ -117,7 +117,7 @@ def build_flagship(batch=8, height=512, width=1760, device="cuda",
 
 def build_flagship_train(batch=8, height=512, width=1760, device="cuda",
                          compute_dtype=torch.bfloat16, seed=0, src_hw=SRC_HW,
-                         on_stage=None, backbone=None):
+                         on_stage=None, backbone=None, batch_skip=None):
     """One GrooMeD-NMS training step of the flagship on ``device``.
 
     The ``groomed_nms`` config: the loss with GrooMeD-NMS on the top 512
@@ -135,7 +135,8 @@ def build_flagship_train(batch=8, height=512, width=1760, device="cuda",
     take ``tiny_densenet_config()``: a randomly initialised DenseNet-121 in
     train mode turns a 1e-7 relative change of its weights into a ~0.4%
     change of the whole update, so two devices cannot agree closely on one
-    step).
+    step).  ``batch_skip`` (None: the config's, 1) accumulates that many
+    steps' clipped gradients before each optimizer update.
 
     Returns ``(step, state, batch)``: ``step(state, batch)`` preprocesses
     the frames (odd images mirrored), takes one step, updates ``state`` in
@@ -191,7 +192,8 @@ def build_flagship_train(batch=8, height=512, width=1760, device="cuda",
         model.parameters(), ecfg.solver_type,
         build_lr_schedule(ecfg.lr, ecfg.max_iter, ecfg.lr_policy),
         momentum=ecfg.momentum, weight_decay=ecfg.weight_decay,
-        clip_value=ecfg.grad_clip_value)
+        clip_value=ecfg.grad_clip_value,
+        batch_skip=ecfg.batch_skip if batch_skip is None else batch_skip)
     step = make_train_step(ecfg.loss_config(), dev(rois), dev(rois_3d),
                            dev(np.zeros(13)), dev(np.ones(13)), compute_dtype,
                            on_stage)

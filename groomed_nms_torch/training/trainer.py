@@ -1,17 +1,20 @@
 """The optimizer, the train state and the train step (counterpart of
 ``groomed_nms_tpu/training/trainer.py``).
 
-* ``build_optimizer``: SGD in the reference's order -- clip each gradient
-  element to [-clip, clip], add ``weight_decay * param``, momentum
-  ``buf = g + momentum * buf``, then ``param -= lr(step) * buf`` with the
-  step count starting at 0 (optax's ``clip``, ``add_decayed_weights``,
-  ``trace``, ``scale_by_learning_rate``).  With ``batch_skip = k > 1`` the
-  gradients accumulate as a running SUM clipped after every micro-step, and
-  every k-th micro-step applies the update to that sum with the LR of the
-  global iteration, ``lr(a * k + k - 1)`` for the a-th update (the
-  reference's ``loss_backprop`` / ``adjust_lr``).
-* ``make_train_step``: forward (BatchNorm in train mode, bf16 autocast when
-  asked), ``rpn_3d_loss`` in f32, backward, optimizer step.
+* ``build_optimizer``: the reference's solvers in optax's order -- clip
+  each gradient element to [-clip, clip], add ``weight_decay * param``,
+  then the solver's direction (SGD momentum ``buf = g + momentum * buf``;
+  Adam / Adamax with b1 0.9, b2 0.999, eps 1e-8 and bias correction, as
+  ``optax.scale_by_adam`` / ``scale_by_adamax`` compute them), then
+  ``param -= lr(step) * direction`` with the step count starting at 0.
+  With ``batch_skip = k > 1`` the gradients accumulate as a running SUM
+  clipped after every micro-step, and every k-th micro-step applies the
+  update to that sum with the LR of the global iteration,
+  ``lr(a * k + k - 1)`` for the a-th update (the reference's
+  ``loss_backprop`` / ``adjust_lr``).
+* ``make_train_step``: forward (BatchNorm in train mode unless every
+  statistic is frozen; frozen statistics kept through the step; bf16
+  autocast when asked), ``rpn_3d_loss`` in f32, backward, optimizer step.
 * ``fuse_preprocess``: uint8 frames + mirror flags -> the step.
 """
 
@@ -21,49 +24,80 @@ import contextlib
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..data.augment import preprocess_images
 from ..losses.rpn_3d import GTBatch, LossConfig, UncertaintyState, rpn_3d_loss
 
+SOLVERS = ("sgd", "adam", "adamax")
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
-class ClippedSGD:
-    """SGD with momentum, weight decay, element-wise gradient clipping and
-    clipped-sum gradient accumulation; see the module docstring.
+
+class ClippedOptimizer:
+    """SGD with momentum, Adam or Adamax, with weight decay, element-wise
+    gradient clipping and clipped-sum gradient accumulation; see the
+    module docstring.
 
     ``step()`` reads each parameter's ``.grad`` (a parameter without one
     counts as a zero gradient, as JAX's gradient of an unused parameter is)
     and returns True when it updated the parameters.  The per-parameter
     updates run as ``torch._foreach_*`` ops, one launch per op and list.
+    Parameters left out of ``params`` (frozen ones) get no update at all.
     """
 
-    def __init__(self, params, lr_schedule, *, momentum=0.9,
-                 weight_decay=0.0005, clip_value=1.0, batch_skip=1):
+    def __init__(self, params, lr_schedule, *, solver_type="sgd",
+                 momentum=0.9, weight_decay=0.0005, clip_value=1.0,
+                 batch_skip=1):
+        if solver_type not in SOLVERS:
+            raise NotImplementedError(
+                f"solver_type={solver_type!r}; known: {SOLVERS}")
         self.params = [p for p in params]
         self.lr_schedule = lr_schedule if callable(lr_schedule) \
             else (lambda step: lr_schedule)
+        self.solver_type = solver_type
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.clip_value = clip_value
         self.batch_skip = int(batch_skip) if batch_skip else 1
         self.count = 0                  # applied updates
         self.mini_step = 0              # micro-steps (batch_skip > 1)
-        self.trace = [torch.zeros_like(p) for p in self.params]
-        self.acc = [torch.zeros_like(p) for p in self.params] \
-            if self.batch_skip > 1 else None
+        zeros = lambda: [torch.zeros_like(p) for p in self.params]
+        if solver_type == "sgd":
+            self.trace = zeros()
+        else:
+            self.mu, self.nu = zeros(), zeros()
+        self.acc = zeros() if self.batch_skip > 1 else None
+
+    def _buffers(self):
+        return {"trace": self.trace} if self.solver_type == "sgd" \
+            else {"mu": self.mu, "nu": self.nu}
 
     def state_dict(self):
-        """The update counts and the momentum (and accumulation) buffers,
-        in parameter order."""
-        return {"count": self.count, "mini_step": self.mini_step,
-                "trace": list(self.trace), "acc": self.acc}
+        """The solver, the update counts and the moment (and accumulation)
+        buffers, in parameter order."""
+        return {"solver_type": self.solver_type, "count": self.count,
+                "mini_step": self.mini_step, **self._buffers(),
+                "acc": self.acc}
 
     @torch.no_grad()
     def load_state_dict(self, state):
-        self.count, self.mini_step = state["count"], state["mini_step"]
-        torch._foreach_copy_(self.trace, state["trace"])
+        """Raises ``ValueError`` when ``state`` is of another solver or
+        another parameter list (count or shapes), changing nothing."""
+        if state.get("solver_type", "sgd") != self.solver_type:
+            raise ValueError(f"optimizer state of solver "
+                             f"{state.get('solver_type')!r}, this one is "
+                             f"{self.solver_type!r}")
+        pairs = [(self._buffers()[k], state[k]) for k in self._buffers()]
         if self.acc is not None and state["acc"] is not None:
-            torch._foreach_copy_(self.acc, state["acc"])
+            pairs.append((self.acc, state["acc"]))
+        for mine, theirs in pairs:
+            if len(mine) != len(theirs) or any(
+                    a.shape != b.shape for a, b in zip(mine, theirs)):
+                raise ValueError("optimizer state of another parameter list")
+        for mine, theirs in pairs:
+            torch._foreach_copy_(mine, theirs)
+        self.count, self.mini_step = state["count"], state["mini_step"]
 
     def zero_grad(self):
         for p in self.params:
@@ -73,6 +107,32 @@ class ClippedSGD:
         if self.clip_value:
             torch._foreach_clamp_min_(tensors, -self.clip_value)
             torch._foreach_clamp_max_(tensors, self.clip_value)
+
+    def _direction(self, grads):
+        """The solver's update direction (before ``-lr``) for ``grads``."""
+        if self.solver_type == "sgd":
+            torch._foreach_mul_(self.trace, self.momentum)
+            torch._foreach_add_(self.trace, grads)
+            return self.trace
+        # optax: EMA = (1 - decay) * g + decay * state; bias correction
+        # 1 - decay ** count in f32, count counting this update
+        t = np.float32(self.count + 1)
+        bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** t)
+        torch._foreach_mul_(self.mu, ADAM_B1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - ADAM_B1))
+        if self.solver_type == "adam":
+            bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** t)
+            torch._foreach_mul_(self.nu, ADAM_B2)
+            torch._foreach_add_(self.nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - ADAM_B2))
+            denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+            torch._foreach_add_(denom, ADAM_EPS)
+        else:                           # adamax: the infinity moment
+            self.nu = torch._foreach_maximum(
+                torch._foreach_add(torch._foreach_abs(grads), ADAM_EPS),
+                torch._foreach_mul(self.nu, ADAM_B2))
+            denom = self.nu
+        return torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
 
     @torch.no_grad()
     def step(self):
@@ -92,9 +152,7 @@ class ClippedSGD:
             lr = self.lr_schedule(self.count)
         if self.weight_decay:
             torch._foreach_add_(grads, self.params, alpha=self.weight_decay)
-        torch._foreach_mul_(self.trace, self.momentum)
-        torch._foreach_add_(self.trace, grads)
-        torch._foreach_add_(self.params, self.trace, alpha=-lr)
+        torch._foreach_add_(self.params, self._direction(grads), alpha=-lr)
         if k > 1:
             torch._foreach_zero_(self.acc)
         self.count += 1
@@ -104,16 +162,13 @@ class ClippedSGD:
 def build_optimizer(params, solver_type="sgd", lr_schedule=None,
                     momentum=0.9, weight_decay=0.0005, clip_value=1.0,
                     batch_skip=1):
-    """The reference's optimizer over ``params``; ``lr_schedule`` is a
-    function of the update count (``training.schedules``) or a float.
-    Only "sgd" is ported."""
-    if solver_type != "sgd":
-        raise NotImplementedError(
-            f"solver_type={solver_type!r} is not ported to groomed_nms_torch "
-            "(ROADMAP.md, queue 1); every shipped config uses 'sgd'")
-    return ClippedSGD(params, lr_schedule, momentum=momentum,
-                      weight_decay=weight_decay, clip_value=clip_value,
-                      batch_skip=batch_skip)
+    """The reference's optimizer over ``params`` (the trainable ones);
+    ``lr_schedule`` is a function of the update count
+    (``training.schedules``) or a float.  ``solver_type`` is "sgd", "adam"
+    or "adamax"."""
+    return ClippedOptimizer(params, lr_schedule, solver_type=solver_type,
+                            momentum=momentum, weight_decay=weight_decay,
+                            clip_value=clip_value, batch_skip=batch_skip)
 
 
 @dataclass
@@ -129,7 +184,8 @@ class TrainState:
 
 
 def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
-                    bbox_stds, compute_dtype=None, on_stage=None):
+                    bbox_stds, compute_dtype=None, on_stage=None,
+                    train_bn=True, frozen_stats=()):
     """Build ``train_step(state, batch) -> stats``.
 
     ``batch`` holds 'images' [B, 3, H, W] (normalised, on the model's
@@ -141,17 +197,32 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
     stats dict of 0-dim tensors (nothing is read back to the host).
     ``on_stage``, when given, is called with "forward", "loss", "backward"
     and "optimizer" as each stage has been issued (a timer's hook).
+
+    Freezing (``training/freeze.py``): ``train_bn=False`` runs the model in
+    eval mode, BatchNorm normalising by its running statistics and leaving
+    them as they are (every statistic frozen); ``frozen_stats``, names of
+    ``running_mean`` / ``running_var`` buffers, keeps those unchanged
+    through a train-mode step while the rest update.
     """
     mark = on_stage if on_stage is not None else (lambda stage: None)
+    frozen_stats = tuple(frozen_stats)
 
     def train_step(state: TrainState, batch):
         model = state.model
-        model.train()
+        model.train(train_bn)
         images = batch["images"]
         amp = (torch.autocast(images.device.type, dtype=compute_dtype)
                if compute_dtype is not None else contextlib.nullcontext())
+        pinned = None
+        if train_bn and frozen_stats:
+            buffers = dict(model.named_buffers())
+            pinned = [buffers[k] for k in frozen_stats]
+            saved = [b.clone() for b in pinned]
         with amp:
             out = model(images)
+        if pinned is not None:
+            with torch.no_grad():
+                torch._foreach_copy_(pinned, saved)
         mark("forward")
         outputs = {"cls": out.cls, "prob": out.prob, "bbox_2d": out.bbox_2d,
                    "bbox_3d": out.bbox_3d, "accept_prob": out.accept_prob,
@@ -173,13 +244,14 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
 
 
 def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
-                    distort_prob=0.0):
+                    distort_prob=0.0, out_dtype=None):
     """Fold the device-side preprocess into the step: the returned
     ``fused(state, raw)`` takes the loader's batch, ``{'images_u8': [B, H0,
     W0, 3] uint8, 'mirror': [B] bool, **GTBatch fields}``, resizes, crops or
-    pads, flips and normalises the frames, and runs ``step_fn``.
-    ``image_means`` / ``image_stds`` are 3-vectors on the frames' device.
-    Photometric jitter (``distort_prob > 0``) is not ported.
+    pads, flips and normalises the frames (in f32, then cast to
+    ``out_dtype`` when given), and runs ``step_fn``.  ``image_means`` /
+    ``image_stds`` are 3-vectors on the frames' device.  Photometric jitter
+    (``distort_prob > 0``) is not ported.
     """
     if distort_prob > 0:
         raise NotImplementedError(
@@ -189,7 +261,8 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
     def fused(state, raw):
         images = preprocess_images(raw["images_u8"], raw["mirror"],
                                    image_means, image_stds,
-                                   target_h=target_h, crop_w=crop_w)
+                                   target_h=target_h, crop_w=crop_w,
+                                   out_dtype=out_dtype)
         gt = {k: v for k, v in raw.items() if k not in ("images_u8", "mirror")}
         return step_fn(state, dict(images=images, **gt))
 

@@ -5,7 +5,10 @@
 names already match, conv kernels go HWIO -> OIHW, BatchNorm ``scale``/
 ``bias``/``mean``/``var`` become ``weight``/``bias``/``running_mean``/
 ``running_var`` (both sides use eps 1e-5).  It is the bridge the tests use
-to run one set of weights through both packages.
+to run one set of weights through both packages.  ``flax_names`` is the
+same map read the other way: each ``state_dict`` key's flax path, which is
+what the freezing rules (``training/freeze.py``) match the config's strings
+against.
 """
 
 from __future__ import annotations
@@ -48,6 +51,36 @@ def from_flax(params, batch_stats=None):
         sd[f"{mod}.{name}"] = torch.from_numpy(v.copy())
         sd[f"{mod}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
     return sd
+
+
+_FLAX_LEAF = {
+    nn.Conv2d: {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    nn.BatchNorm2d: {"weight": ("params", "scale"),
+                     "bias": ("params", "bias"),
+                     "running_mean": ("batch_stats", "mean"),
+                     "running_var": ("batch_stats", "var")},
+}
+
+
+def flax_names(model: nn.Module):
+    """{state_dict key: (collection, flax path)} for the keys ``from_flax``
+    writes: ``backbone.denseblock1_layer1.norm1.weight`` ->
+    ("params", "backbone/denseblock1_layer1/norm1/scale"),
+    ``...running_mean`` -> ("batch_stats", ".../mean").  BatchNorm's
+    ``num_batches_tracked`` has no flax counterpart and is left out."""
+    out = OrderedDict()
+    for mod_name, mod in model.named_modules():
+        leaves = next((v for k, v in _FLAX_LEAF.items()
+                       if isinstance(mod, k)), None)
+        if leaves is None:
+            continue
+        prefix = mod_name.replace(".", "/")
+        for name, _ in list(mod.named_parameters(recurse=False)) + \
+                list(mod.named_buffers(recurse=False)):
+            if name in leaves:
+                coll, leaf = leaves[name]
+                out[f"{mod_name}.{name}"] = (coll, f"{prefix}/{leaf}")
+    return out
 
 
 @torch.no_grad()

@@ -714,3 +714,76 @@ def test_dynamic_preprocess_on_cuda_matches_static(cuda, shape, target,
     torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-5)
     want = preprocess_images(imgs.to(cuda), None, means, stds, **size)
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+# -- the training slice --------------------------------------------------------
+
+def _train_tree(root, n=8, **kw):
+    from groomed_nms_torch.data.synthetic import make_synthetic_kitti
+    make_synthetic_kitti(root, "training", n, seed=3,
+                         classes=("Car", "Pedestrian", "Cyclist"), **kw)
+
+
+def test_prepare_anchors_on_cuda_matches_cpu(cuda, tmp_path):
+    """Pass 2 (compute_targets) on the card: the same anchors, and the
+    stds at rtol 1e-6 and the means at 1e-6 of |mean| + std (the log
+    columns' roundings differ by a step between the devices); the
+    truncation rule of the mean pass is exercised (min_gt_vis 0.65 on
+    KITTI-size frames)."""
+    import dataclasses
+
+    from groomed_nms_torch.config import load_config
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.data.pipeline import prepare_anchors
+
+    root = str(tmp_path / "kitti")
+    _train_tree(root, n=6)
+    cfg = dataclasses.replace(load_config("groomed_nms"), min_gt_vis=0.65)
+    imdb = build_imdb(root, "training")
+    a_c, m_c, s_c = prepare_anchors(cfg, imdb, device="cpu")
+    a_g, m_g, s_g = prepare_anchors(cfg, imdb, device=cuda)
+    np.testing.assert_array_equal(a_g, a_c)
+    np.testing.assert_allclose(s_g, s_c, rtol=1e-6, atol=0)
+    assert (np.abs(m_g - m_c) <= 1e-6 * (np.abs(m_c) + s_c)).all()
+
+
+def test_train_loader_batch_through_a_stage2_step(cuda, tmp_path):
+    """One TrainLoader batch, pinned, through device_prefetch's side stream
+    into train_torch's fused tiny_synthetic step (GrooMeD-NMS in the loss):
+    one K3 and one grouping launch, finite stats, the weights moved."""
+    import importlib.util
+
+    from groomed_nms_torch.config import load_config
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.data.pipeline import (TrainLoader, device_prefetch,
+                                                 prepare_anchors)
+
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "train_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    root = str(tmp_path / "kitti")
+    _train_tree(root, im_h=96, im_w=320)
+    cfg = load_config("tiny_synthetic")
+    imdb = build_imdb(root, "training")
+    anchors, means, stds = prepare_anchors(cfg, imdb, device=cuda)
+    run = script.build_training(cfg, anchors, means, stds, cuda)
+    before = {k: v.clone() for k, v in run.model.state_dict().items()}
+    loader = TrainLoader(imdb, cfg, seed=cfg.rng_seed, prefetch=1)
+    batches = device_prefetch(script.host_tensors(loader, pin=True), cuda)
+    try:
+        _, tensors = next(batches)
+        assert all(t.device.type == "cuda" for t in tensors)
+        k3, grp = (kernels.fused_iou_prune.launches,
+                   kernels.group_leaders.launches)
+        stats = run.step(run.state, script.raw_batch(tensors))
+        torch.cuda.synchronize()
+    finally:
+        batches.close()
+        loader.close()
+    assert kernels.fused_iou_prune.launches == k3 + 1
+    assert kernels.group_leaders.launches == grp + 1
+    assert all(bool(torch.isfinite(v)) for v in stats.values())
+    after = run.model.state_dict()
+    assert any(not torch.equal(after[k], before[k]) for k in before)

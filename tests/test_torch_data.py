@@ -375,7 +375,7 @@ def test_load_image_cached_missing_source_serves_the_newest(tmp_path,
 def test_load_anchors_and_resolve_stats_dir(tmp_path):
     cfg = load_config("groomed_nms")
     run, pre = str(tmp_path / "run"), str(tmp_path / "pre")
-    with pytest.raises(ValueError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="prepare_anchors.*train_torch"):
         pipeline.load_anchors(cfg, run)
     os.makedirs(pre)
     a = np.arange(36 * 11, dtype=np.float32).reshape(36, 11)

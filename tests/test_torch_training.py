@@ -96,8 +96,8 @@ def test_optimizer_matches_optax_chain(batch_skip):
 
 
 def test_unported_solver_raises():
-    with pytest.raises(NotImplementedError, match="adam"):
-        build_optimizer([torch.nn.Parameter(torch.zeros(1))], "adam", 0.1)
+    with pytest.raises(NotImplementedError, match="rmsprop"):
+        build_optimizer([torch.nn.Parameter(torch.zeros(1))], "rmsprop", 0.1)
 
 
 def _images(seed, b=2, h=64, w=128):
