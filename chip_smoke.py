@@ -108,8 +108,28 @@ Phases, in order; any failure raises and exits non-zero:
                 3 loop steps of tiny_synthetic (BatchNorm perturbed) on the
                 card against the CPU path (f64 asserted, f32 with TF32 off
                 reported);
- 14. the kernels JSON line, then the last line:
-     {"ok": true, "device": {...}}.
+ 14. video  -- the video slice's test path: (a) video_track over three
+                synthetic 4-frame clips (models/kalman.py, T 128, M 64) on
+                the card against the CPU path under sync debug mode
+                "error", f64 identical (f32 reported), a clip's host ms and
+                device busy ms and launches; (b) K2 at [4, 64] with padded
+                slots against greedy_nms_plain, both timed; (c)
+                scripts/test_kalman_torch.py's main() with kitti_3d_full at
+                512x1760 f32 on a synthetic tracking tree (8 validation
+                clips of 4 frames at 375x1242), a perturbed _un checkpoint
+                as its pretrained run, a pose npz: track rows written, K1
+                and K2 one launch a clip each, clip/s and the host's share
+                of the wall (after a warm-up run), then K1 against its
+                plain version on the last clip's head as the path gave it
+                ([4, 126720, per] f32, no acceptance), both timed; (d) the
+                same script's rows, card against CPU path at 128x416 f32
+                (TF32 off, 2 clips); (e) kitti_3d_uncertainty through
+                scripts/train_torch.py on phase 13's tree, warm-started from
+                its stage 1: only the head of another shape, the un stat
+                finite every step, the uncertainty channel moved, ms/step;
+ 15. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+     at the video path's shape, its times and bound, and its launches),
+     then the last line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
 run; every error is printed before it is checked.
@@ -354,29 +374,39 @@ def k2_flagship_input(model, args):
         return d[:, :k, :4].contiguous(), s[:, :k].contiguous()
 
 
-def split_ms(fn, names, per_call=None, reps=3):
-    """Device ms of a call of ``fn`` in the kernels whose name holds each of
-    ``names`` (``torch.profiler``): the mean kernel time over ``reps`` calls
-    times its launches a call (``per_call``, default 1).  The profiler can
-    deliver a trace's kernels to the next trace: a spin kernel marks this
-    trace's start and kernels before it are left out, and a kernel that was
-    missed leaves the mean as it is."""
+def kernel_events(prof):
+    """The CUDA kernels of a torch.profiler trace after its last spin kernel:
+    the profiler can deliver a trace's kernels to the next trace, so each
+    trace starts with ``torch.cuda._sleep`` as a marker."""
     from torch.autograd import DeviceType
+    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    start = max((e.time_range.start for e in ks if "spin_kernel" in e.name),
+                default=float("-inf"))
+    return [e for e in ks if e.time_range.start > start]
+
+
+def trace_kernels(fn, reps=1):
+    """The CUDA kernels (``kernel_events``) of ``reps`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
-    per_call = per_call or {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(1000)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    start = max((e.time_range.start for e in kernels
-                 if "spin_kernel" in e.name), default=float("-inf"))
+    return kernel_events(prof)
+
+
+def split_ms(fn, names, per_call=None, reps=3):
+    """Device ms of a call of ``fn`` in the kernels whose name holds each of
+    ``names`` (``trace_kernels``): the mean kernel time over ``reps`` calls
+    times its launches a call (``per_call``, default 1).  A kernel that the
+    profiler missed leaves the mean as it is."""
+    per_call = per_call or {}
+    kernels_ = trace_kernels(fn, reps)
     out = {}
     for name in names:
-        us = [e.time_range.elapsed_us() for e in kernels
-              if name in e.name and e.time_range.start >= start]
+        us = [e.time_range.elapsed_us() for e in kernels_ if name in e.name]
         out[name] = sum(us) / len(us) * per_call.get(name, 1) / 1e3 \
             if us else 0.0
     return out
@@ -1304,17 +1334,12 @@ def train_rate(summary):
             summary["host_wait_s"] / summary["train_s"])
 
 
-def count_kernels(prof, start_marker="spin_kernel"):
-    """{kernel name: launches} of a torch.profiler trace, from the last
-    spin kernel on (a trace can hold the previous trace's kernels)."""
-    from torch.autograd import DeviceType
-    kernels_ = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    start = max((e.time_range.start for e in kernels_
-                 if start_marker in e.name), default=float("-inf"))
+def count_kernels(prof):
+    """{kernel name: launches} of a torch.profiler trace (``kernel_events``)."""
+    kernels_ = kernel_events(prof)
     names = ("head_scores", "nms_mask", "nms_sweep", "iou_prune_kernel",
              "group_bits", "group_sweep")
-    return {n: sum(1 for e in kernels_ if n in e.name
-                   and e.time_range.start >= start) for n in names}
+    return {n: sum(1 for e in kernels_ if n in e.name) for n in names}
 
 
 def tiny_loop(script, root, device, dtype):
@@ -1539,6 +1564,292 @@ def train_entry_phase(dev, stamp):
           f"{TINY_LOOP_REL:g}), f32 with TF32 off {errs['f32']:.3e} "
           f"(reported)", flush=True)
     assert errs["f64"] <= TINY_LOOP_REL, "the tiny loop differs on the card"
+
+
+# the video slice (phase 14): the tracker on the card against its CPU path
+# in f64, masks and ids identical and every number within 1e-9 (+ 1e-9
+# |x|; the same f64 ops, summed in other orders); the script's rows card
+# against CPU path at 128x416 f32 with TF32 off, as phase 12 compares
+# them (TXT_ATOL, TXT_RTOL).  Random weights score every anchor near 1/C,
+# and a track's confidence is the uncertainty times the score, so the
+# script runs at score_thres 0.2 (the BatchNorm perturbed as perturb_
+# does) to write rows
+VIDEO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_video")
+VIDEO_CLIPS, VIDEO_SCORE_THRES = 8, 0.2
+TRACK_TOL = 1e-9
+UN_STEPS = 10                          # kitti_3d_uncertainty steps
+
+
+def tracks_agree(got, ref):
+    """(masks, ids and next_id identical over every frame, max |err| /
+    (1 + |ref|) of the numbers) of two ``video_track`` snapshot lists."""
+    same, err = len(got) == len(ref), 0.0
+    for g, r in zip(got, ref):
+        for f in ("valid", "ids", "next_id"):
+            same &= torch.equal(getattr(g, f).cpu(), getattr(r, f))
+        for f in ("X", "C", "A", "box2d", "un"):
+            a, b = getattr(g, f).cpu().double(), getattr(r, f).double()
+            err = max(err, ((a - b).abs() / (1 + b.abs())).max().item())
+    return same, err
+
+
+def video_phase(dev, flush, stamp):
+    """14: the video slice's test path (see the module docstring).
+    Returns {"fused_head_scores": ..., "greedy_nms": ...}, each kernel's
+    check at the video path's shape (ms, plain_ms, max_abs_err, bound_ms,
+    bound_by) and its launches in the timed scripts/test_kalman_torch.py
+    run."""
+    import importlib.util
+    import shutil
+
+    from groomed_nms_torch.data.synthetic import (kitti_p2,
+                                                  make_synthetic_kitti_video,
+                                                  make_synthetic_track_clip)
+    from groomed_nms_torch.flagship import flagship_priors
+    from groomed_nms_torch.models.video import VideoConfig, video_track
+    from groomed_nms_torch.training.checkpoint import (checkpoint_path,
+                                                       save_checkpoint)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, "scripts", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    # -- (a) the tracker: card against the CPU path, no host sync
+    p2 = np.concatenate([kitti_p2(), [[0.0, 0.0, 0.0, 1.0]]])
+    vcfg = VideoConfig()
+    errs = {}
+    for seed in (1, 2, 3):
+        clip = [torch.from_numpy(a) for a in make_synthetic_track_clip(
+            seed, n_frames=4, m=vcfg.max_measurements, n_objects=24, p2=p2)]
+        for name, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+            args = [clip[0].to(dtype), clip[1], clip[2].to(dtype),
+                    torch.from_numpy(p2).to(dtype)]
+            _, ref = video_track(*args, vcfg)
+            args_g = [a.to(dev) for a in args]
+            video_track(*args_g, vcfg)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, got = video_track(*args_g, vcfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            errs.setdefault(name, []).append(tracks_agree(got, ref))
+    host_ms = wall_ms(lambda: video_track(*args_g, vcfg), 5)
+    traced = trace_kernels(lambda: video_track(*args_g, vcfg))
+    dev_ms = sum(e.time_range.elapsed_us() for e in traced) / 1e3
+    n_launch = len(traced)
+    print(f"video (a): video_track over 3 synthetic 4-frame clips (24 "
+          f"objects, M {vcfg.max_measurements}, T {vcfg.max_tracks}) on the "
+          f"card against the CPU path, no host sync (sync debug mode "
+          f"error): masks and ids identical in f64 "
+          f"{[ok for ok, _ in errs['f64']]}, max err "
+          f"{max(e for _, e in errs['f64']):.3e} (tol {TRACK_TOL:g}); in f32 "
+          f"(reported) {[ok for ok, _ in errs['f32']]}, max err "
+          f"{max(e for _, e in errs['f32']):.3e}; a clip in f32: "
+          f"host {host_ms:.2f} ms (synchronised), device busy "
+          f"{dev_ms:.3f} ms in {n_launch} kernel launches {stamp}",
+          flush=True)
+    assert all(ok and err <= TRACK_TOL for ok, err in errs["f64"]), \
+        errs["f64"]
+
+    # -- (b) K2 at the measurements' shape, padded slots
+    boxes_np, scores_np = nms_case(np.random.default_rng(14), 4, 64)
+    boxes_np[scores_np <= 0] = 0.0
+    boxes, scores = (torch.from_numpy(boxes_np).to(dev),
+                     torch.from_numpy(scores_np).to(dev))
+    keep = kernels.greedy_nms(boxes, scores, nms_threshold=0.4, shift=1.0)
+    keep_ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4,
+                                        shift=1.0)
+    assert torch.equal(keep, keep_ref), "K2 at [4, 64] differs from plain"
+    k2_ms = time_ms(lambda: kernels.greedy_nms(boxes, scores), 50, flush)
+    k2_plain_ms = time_ms(lambda: kernels.greedy_nms_plain(boxes, scores), 5,
+                          flush)
+    k2_bound = k2_work_bound(*scores.shape)
+    print(f"video (b): K2 at [4, 64] with {int((scores <= 0).sum())} padded "
+          f"slots: keep identical to greedy_nms_plain ({int(keep.sum())} "
+          f"kept); kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, bound "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}) {stamp}", flush=True)
+    video = {"greedy_nms": dict(ms=k2_ms, plain_ms=k2_plain_ms, max_abs_err=0.0,
+                                bound_ms=k2_bound[0], bound_by=k2_bound[1])}
+
+    # -- (c) scripts/test_kalman_torch.py at full width
+    shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    data_root = os.path.join(VIDEO_DIR, "data")
+    out_root = os.path.join(VIDEO_DIR, "output")
+    t0 = time.perf_counter()
+    make_synthetic_kitti_video(os.path.join(data_root, "kitti_split1"),
+                               n_train=1, n_val=VIDEO_CLIPS, seed=31)
+    run_dir = os.path.join(out_root, "kitti_3d_full")
+    os.makedirs(run_dir)
+    priors = flagship_priors()
+    priors = np.concatenate(
+        [priors, np.full((priors.shape[0], 1), 0.3, np.float32)], 1)
+    np.savez(os.path.join(run_dir, "anchors.npz"), anchors=priors,
+             bbox_means=np.zeros(14), bbox_stds=np.ones(14))
+    un_model = RPN3D(load_config("kitti_3d_uncertainty").rpn_config(
+        NUM_ANCHORS))
+    init_weights(un_model, torch.Generator().manual_seed(8))
+    perturb_(un_model, seed=8)
+    un_dir = os.path.join(out_root, "kitti_3d_uncertainty_perturbed")
+    save_checkpoint(un_dir, un_model, step=0)
+    rs = np.random.default_rng(9)
+    c2 = 2 * un_model.config.backbone.out_features
+    pose_dir = run_dir + "_pose"
+    os.makedirs(pose_dir)
+    np.savez(os.path.join(pose_dir, "pose_net_params.npz"), **{
+        "pose_feats/kernel": (rs.normal(size=(3, 3, c2, 512))
+                              / np.sqrt(9 * c2)).astype(np.float32),
+        "pose_feats/bias": np.zeros(512, np.float32),
+        "pose/kernel": (rs.normal(size=(1, 1, 512, 6)) / np.sqrt(512))
+        .astype(np.float32),
+        "pose/bias": np.zeros(6, np.float32),
+        "conf/kernel": (rs.normal(size=(1, 1, 512, 1)) / np.sqrt(512))
+        .astype(np.float32),
+        "conf/bias": np.zeros(1, np.float32)})
+    np.savez(os.path.join(pose_dir, "pose_stats.npz"),
+             means=np.zeros(6), stds=np.full(6, 0.1))
+    print(f"video (c): a tracking tree of {VIDEO_CLIPS} validation clips "
+          f"(4 frames at 375x1242), anchors.npz, a perturbed _un checkpoint "
+          f"and a pose npz written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    tk = script("test_kalman_torch")
+    base = ["--config", "kitti_3d_full", "--data-root", data_root,
+            "--output", out_root, "--set", f"pretrained={un_dir!r}",
+            "--set", f"score_thres={VIDEO_SCORE_THRES}"]
+    names = ("fused_head_scores", "greedy_nms")
+
+    def run(*argv):
+        for n in names:
+            getattr(kernels, n).launches = 0
+        summary = tk.main([*base, *argv])
+        counts = {n: getattr(kernels, n).launches for n in names}
+        assert counts == summary["launches"], (counts, summary["launches"])
+        return summary
+
+    run()                                           # cuDNN autotuning
+    # the timed run's K1 input, kept as the path hands it to the wrapper
+    # (the counts stay the wrapper's own)
+    import groomed_nms_torch.models.video as video_mod
+    k1_in = {}
+
+    def k1_spy(fused, accept=None, **kw):
+        k1_in.update(fused=fused, accept=accept, kw=kw)
+        return kernels.fused_head_scores(fused, accept, **kw)
+
+    video_mod.fused_head_scores = k1_spy
+    try:
+        s = run()
+    finally:
+        video_mod.fused_head_scores = kernels.fused_head_scores
+    print(f"video (c): test_kalman_torch main(), kitti_3d_full at 512x1760 "
+          f"f32: {s['clips']} clips, {s['frames']} frames, {s['rows']} track "
+          f"rows written, launches {s['launches']}, {s['clips_per_s']:.3f} "
+          f"clip/s ({s['frames'] / s['wall_s']:.2f} frames/s) with the PNG "
+          f"decode, the host busy {s['host_share']:.1%} of the wall {stamp}",
+          flush=True)
+    assert s["clips"] == VIDEO_CLIPS and s["frames"] == 4 * VIDEO_CLIPS
+    assert s["rows"] > 0, "the video path wrote no track row"
+    assert s["launches"] == dict.fromkeys(names, VIDEO_CLIPS), s["launches"]
+    launches = dict(s["launches"])
+
+    # -- (c) K1 on the last clip's head as the path gave it: [F, R, per] f32
+    # (the script's default compute dtype), no acceptance
+    fused, kw = k1_in["fused"], k1_in["kw"]
+    assert k1_in["accept"] is None and fused.is_cuda
+    assert fused.dtype == torch.float32 and fused.shape[:2] == (4, 126720), \
+        (fused.dtype, fused.shape)
+    with torch.inference_mode():
+        got = kernels.fused_head_scores(fused, None, **kw)
+        ref = kernels.fused_head_scores_plain(fused, None, **kw)
+        k1_err = (got - ref).abs().max().item()
+        print(f"video (c): K1 on the video path's head {list(fused.shape)} "
+              f"f32, no acceptance: max|err| {k1_err:.3e} (atol 1e-6)",
+              flush=True)
+        assert k1_err <= 1e-6, f"K1 disagrees with its plain version: {k1_err}"
+        k1_ms = time_ms(lambda: kernels.fused_head_scores(fused, None, **kw),
+                        50, flush)
+        k1_plain_ms = time_ms(lambda: kernels.fused_head_scores_plain(
+            fused, None, **kw), 20, flush)
+    f, r, per = fused.shape
+    k1_bound = bound(f * r * kw["num_classes"] * HEAD_OPS, f * r * (per * 4 + 4),
+                     PEAK_F32)
+    print(f"video (c): K1 at {list(fused.shape)} f32: kernel {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
+          f"({k1_bound[1]}) {stamp}", flush=True)
+    video["fused_head_scores"] = dict(
+        ms=k1_ms, plain_ms=k1_plain_ms, max_abs_err=k1_err,
+        bound_ms=k1_bound[0], bound_by=k1_bound[1])
+    del fused, k1_in, got, ref
+
+    # -- (d) card against the CPU path at 128x416 f32, TF32 off
+    small = ("--set", "crop_size=(128, 416)", "--limit", "2")
+    results = s["results_dir"]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    try:
+        for device in ("cpu", "cuda"):
+            shutil.rmtree(results, ignore_errors=True)
+            run(*small, "--device", device)
+            rows[device] = read_rows(os.path.join(results, "data"))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    same, n, ok, max_err = row_agreement(rows["cuda"], rows["cpu"])
+    print(f"video (d): card vs CPU path at 128x416 f32, TF32 off, 2 clips: "
+          f"files/rows/classes equal {same}, {ok}/{n} rows within "
+          f"{TXT_ATOL:g} + {TXT_RTOL:g}|x|, max |err| {max_err:.3e}",
+          flush=True)
+    assert same and n > 0 and ok == n, "the video path differs on the card"
+
+    # -- (e) the _un stage: kitti_3d_uncertainty warm-started from phase
+    # 13's stage 1
+    train = script("train_torch")
+    t_out = os.path.join(VIDEO_DIR, "train_output")
+    warm_dir = os.path.join(TRAIN_DIR, "output", "kitti_3d_warmup")
+    su = train.main(["--config", "kitti_3d_uncertainty", "--data-root",
+                     os.path.join(TRAIN_DIR, "data"), "--output", t_out,
+                     "--max-iter", str(UN_STEPS), "--set",
+                     f"pretrained={warm_dir!r}", "--set", "do_test=False",
+                     "--set", "display=1"])
+    u_dir = os.path.join(t_out, "kitti_3d_uncertainty")
+    with open(os.path.join(u_dir, "metrics.csv")) as f:
+        csv_rows = [r.split(",") for r in f.read().splitlines()]
+    un_vals = [float(r[csv_rows[0].index("un")]) for r in csv_rows[1:]]
+    ucfg = load_config("kitti_3d_uncertainty")
+    n_anchors = np.load(os.path.join(warm_dir, "anchors.npz"))[
+        "anchors"].shape[0]
+    fresh = RPN3D(ucfg.rpn_config(n_anchors))
+    init_weights(fresh, torch.Generator().manual_seed(ucfg.rng_seed))
+    head = torch.load(checkpoint_path(u_dir, UN_STEPS), map_location="cpu",
+                      weights_only=True)["model"]["head.weight"]
+    per = fresh.config.per_anchor
+    moved = (head[per - 1::per] - fresh.head.weight[per - 1::per]).abs() \
+        .max().item()
+    ms, ips, wait = train_rate(su)
+    rep = su["restore"]
+    print(f"video (e): kitti_3d_uncertainty ({UN_STEPS} steps, batch 2, "
+          f"512x1760 f32) warm-started from phase 13's stage 1: other "
+          f"shape {rep['mismatched']}, fresh {rep['fresh']}, dropped "
+          f"{rep['dropped']}; un by step {[round(v, 4) for v in un_vals]}; "
+          f"the uncertainty channel's weights moved by up to {moved:.3e}; "
+          f"{ms:.2f} ms/step ({ips:.2f} img/s), host_wait {wait:.2%} "
+          f"{stamp}", flush=True)
+    assert sorted(rep["mismatched"]) == ["head.bias", "head.weight"]
+    assert rep["fresh"] == [] and rep["dropped"] == []
+    assert len(un_vals) == UN_STEPS and all(np.isfinite(un_vals))
+    assert moved > 0, "the uncertainty channel did not train"
+    for n in names:
+        video[n]["launches"] = launches[n]
+    return video
 
 
 def main():
@@ -1856,8 +2167,9 @@ def main():
     train_launches = train_phase(stamp)
     eval_phase(dev, flush, stamp)
     train_entry_phase(dev, stamp)
+    video = video_phase(dev, flush, stamp)
 
-    # -- 14. results ----------------------------------------------------------
+    # -- 15. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,
@@ -1878,16 +2190,18 @@ def main():
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:146",
-         "launches": launches["fused_head_scores"], "max_abs_err": k1_err,
+         "launches": launches["fused_head_scores"],
+         "max_abs_err": max(k1_err, video["fused_head_scores"]["max_abs_err"]),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "video": video["fused_head_scores"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
          "launches": launches["greedy_nms"], "max_abs_err": 0.0,
          "ms": k2["flagship"]["ms"], "plain_ms": k2["flagship"]["plain_ms"],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None},
+         "library_ms": None, "video": video["greedy_nms"]},
         # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
         # block 1 + block 2
         {"name": "dense_block_eval", "route": "cuda",

@@ -4,6 +4,7 @@ A copy of ``groomed_nms_tpu/data/kitti.py`` (the JAX package's
 ``data/__init__.py`` imports JAX, so the port keeps its own):
 
 * ``read_kitti_calib`` -- P2 as a 4x4 (row 3 = [0,0,0,1]).
+* ``read_kitti_poses`` -- an odometry pose file as a list of 4x4 matrices.
 * ``read_kitti_label`` -- parses label rows into a struct-of-arrays dict;
   re-centers cy3d by -h/2, recomputes alpha from rotY, optionally regenerates
   the 2D box from the projected 3D cuboid (``use_3d_for_2d``), and computes
@@ -35,6 +36,21 @@ def read_kitti_calib(path):
     if p2 is None:
         raise ValueError(f"no P2 entry in {path}")
     return p2
+
+
+def read_kitti_poses(path):
+    """Parse a KITTI odometry pose file -> list of 4x4 matrices."""
+    poses = []
+    with open(path) as f:
+        for line in f:
+            vals = [float(v) for v in line.split()]
+            if len(vals) != 12:
+                continue
+            p = np.zeros((4, 4), np.float64)
+            p[:3, :] = np.array(vals).reshape(3, 4)
+            p[3, 3] = 1.0
+            poses.append(p)
+    return poses
 
 
 def _snap(theta, lo, hi):

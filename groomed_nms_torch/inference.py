@@ -13,7 +13,8 @@ Detection row layout (17 columns, original image scale):
    x2d, y2d, z2d,              (projected 3D center, original pixels)
    w3d, h3d, l3d, alpha,
    x3d, y3d, z3d, ry3d]        (camera frame; y3d at cuboid *center*)
-The KITTI writer re-grounds y3d += h3d/2.
+The KITTI writer re-grounds y3d += h3d/2.  ``write_kitti_tracks`` writes the
+video model's tracks (``models/video.py``).
 """
 
 from __future__ import annotations
@@ -295,3 +296,37 @@ def write_kitti_detections(path, dets, valid, class_names,
             f"{ry3d:.6f} {score:.6f}")
     with open(path, "w") as f:
         f.write("\n".join(lines) + ("\n" if lines else ""))
+
+
+def write_kitti_tracks(path, tracks, score_thres=0.6, class_name="Car"):
+    """Write one clip's final tracks in KITTI result format (host side).
+
+    ``tracks`` is a ``models.kalman.Tracks`` (any device).  Its ``box2d``
+    is already in original-image pixels and its ``un`` already folds the 2D
+    score in, so both are written as they are: the score is ``un``, gated
+    at ``> score_thres``.  ry is theta plus the heading flip, wrapped; y is
+    re-grounded by h3d/2.  The state is read in f32, and alpha computed in
+    f32, as the JAX writer does.  Returns the number of rows written.
+    """
+    valid = tracks.valid.cpu().numpy()
+    xs = tracks.X.float().cpu().numpy()
+    box2d = tracks.box2d.float().cpu().numpy()
+    un = tracks.un.float().cpu().numpy()
+    lines = []
+    for ti in np.flatnonzero(valid):
+        x, y, z, w3, h3, l3, theta, head, _ = xs[ti]
+        ry = theta + (np.pi if head >= 0.5 else 0.0)
+        ry = np.arctan2(np.sin(ry), np.cos(ry))
+        alpha = float(rot_y_to_alpha(*(torch.tensor(v, dtype=torch.float32)
+                                       for v in (ry, z, x))))
+        score = un[ti]
+        if score <= score_thres:
+            continue
+        x1, y1, x2, y2 = box2d[ti, :4]
+        lines.append(
+            f"{class_name} -1 -1 {alpha:.6f} {x1:.6f} {y1:.6f} {x2:.6f} "
+            f"{y2:.6f} {h3:.6f} {w3:.6f} {l3:.6f} {x:.6f} "
+            f"{y + h3 / 2:.6f} {z:.6f} {ry:.6f} {score:.6f}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + ("\n" if lines else ""))
+    return len(lines)

@@ -17,11 +17,12 @@ lower index first among equal keys) and each ``argsort(stable=True)`` a
 stable ascending sort.  The loss
 runs in f32; call it outside ``torch.autocast``.
 
-Branches that no shipped ``groomed_nms*`` or ``kitti_3d_warmup*`` config
-reaches are not ported and raise ``NotImplementedError`` naming the config
-key: ``has_un``, ``has_vel``, acceptance ``rank``/``regress``,
-``focal_loss > 0``, ``weigh_3D_regression_loss_by_gt_iou3d`` and after-NMS
-``regress``.
+The velocity term (``has_vel``, the video stage's training) is not ported
+and raises ``NotImplementedError``; every other branch of the JAX function
+is: the ``_un`` model's uncertainty in the acceptance probability's place,
+the focal reweighting, the GT-IoU3D weighting of the 3D terms, the
+acceptance ``classify``/``rank``/``regress``/``likelihood`` modes and the
+after-NMS ``rank``/``classify``/``regress`` modes.
 """
 
 from __future__ import annotations
@@ -151,29 +152,6 @@ class LossConfig:
                     f"ordinal classify, got {len(self.bins_boundary)}")
 
 
-def _check_ported(cfg: LossConfig):
-    """Raise on the branches this package does not implement."""
-    unported = []
-    if cfg.has_un:
-        unported.append("has_un")
-    if cfg.has_vel:
-        unported.append("has_vel")
-    if cfg.predict_acceptance_prob and cfg.acceptance_prob_lambda and \
-            cfg.acceptance_prob_mode in ("rank", "regress"):
-        unported.append(f"acceptance_prob_mode={cfg.acceptance_prob_mode!r}")
-    if cfg.focal_loss:
-        unported.append("focal_loss > 0")
-    if cfg.weigh_3D_regression_loss_by_gt_iou3d:
-        unported.append("weigh_3D_regression_loss_by_gt_iou3d")
-    if cfg.use_nms_in_loss and cfg.after_nms_lambda and \
-            cfg.after_nms_loss_mode == "regress":
-        unported.append("after_nms_loss_mode='regress'")
-    if unported:
-        raise NotImplementedError(
-            f"rpn_3d_loss: {', '.join(unported)} is not ported to "
-            "groomed_nms_torch (ROADMAP.md, queue 1)")
-
-
 def _smooth_l1(x, t):
     d = (x - t).abs()
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
@@ -260,18 +238,24 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
     """Total loss + stats for one batch.
 
     ``outputs``: 'cls' [B, R, C], 'prob' [B, R, C], 'bbox_2d' [B, R, 4],
-    'bbox_3d' [B, R, 10], optional 'accept_prob' [B, R] and 'accept_cls'
-    [B, R, bins-1], all f32.  ``rois`` [R, 5], ``rois_3d`` [R, P],
+    'bbox_3d' [B, R, 10], optional 'accept_prob' [B, R], 'accept_cls'
+    [B, R, bins-1] and 'uncertainty' [B, R] (read under ``has_un`` when
+    there is no 'accept_prob'), all f32.  ``rois`` [R, 5], ``rois_3d`` [R, P],
     ``bbox_means`` / ``bbox_stds`` [13], all on the outputs' device.
 
     Returns ``(loss, stats, new_un_state)``: ``stats`` maps each term's name
     to a 0-dim tensor (nothing is read back to the host).
     """
-    _check_ported(cfg)
+    if cfg.has_vel:
+        raise NotImplementedError(
+            "rpn_3d_loss: has_vel (the video stage's velocity term) is not "
+            "ported to groomed_nms_torch (ROADMAP.md, queue 1, item 11)")
     cls, prob = outputs["cls"], outputs["prob"]
     bbox_2d, bbox_3d = outputs["bbox_2d"], outputs["bbox_3d"]
     accept_prob = outputs.get("accept_prob")
     accept_cls = outputs.get("accept_cls")
+    if accept_prob is None and cfg.has_un:
+        accept_prob = outputs.get("uncertainty")
     if accept_prob is not None:
         accept_prob = _clip(accept_prob, 0.0005, 1.0)
 
@@ -318,6 +302,9 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         0.0)
     labels_weight = torch.where(fg_sel, fg_weight, 0.0) + \
         torch.where(bg_sel, 1.0, 0.0)
+    if cfg.focal_loss:
+        labels_weight = labels_weight * torch.where(
+            active, (1.0 - score_of_label) ** cfg.focal_loss, 1.0)
 
     # -- decode predictions ----------------------------------------------
     coords_2d = bbox_transform_inv(rois[None, :, :4], bbox_2d,
@@ -384,15 +371,18 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         stats["acc_bg"] = _masked_mean((cls_pred == 0).float(), bg)
 
     # -- acceptance probability -------------------------------------------
-    if cfg.predict_acceptance_prob and cfg.acceptance_prob_lambda and \
-            (accept_prob is not None or accept_cls is not None):
-        # targets: IoU3D of each fg anchor's prediction with its GT
+    # targets: IoU3D of each fg anchor's prediction with its GT (no
+    # gradient: every input is detached)
+    accept_tar = None
+    if cfg.predict_acceptance_prob or cfg.weigh_3D_regression_loss_by_gt_iou3d:
         cp = get_corners_of_cuboid(*raw3d)
         ct = get_corners_of_cuboid(x3d_tar, y3d_tar, z3d_tar, raw3[..., 3],
                                    raw3[..., 4], raw3[..., 5], raw3[..., 10])
         _, iou3d_el = iou3d_approximate(cp, ct, pairwise=False)
         accept_tar = torch.nan_to_num(torch.where(fg, iou3d_el, 0.0),
                                       nan=0.0, posinf=0.0, neginf=0.0)
+    if cfg.predict_acceptance_prob and cfg.acceptance_prob_lambda and \
+            (accept_prob is not None or accept_cls is not None):
         if cfg.boxes_for_acceptance_prob == "overlaps":
             accept_sel = tgt.ols_max > cfg.acceptance_prob_overlap_thres
         elif cfg.boxes_for_acceptance_prob == "all":
@@ -422,18 +412,39 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             bce = bce * torch.where(pos, w_pos[:, None, :], 1.0)
             loss_ap = _masked_mean(bce, accept_sel[..., None].expand_as(bce)) \
                 * cfg.acceptance_prob_lambda
-        else:                                     # likelihood
-            if cfg.boxes_for_acceptance_prob == "foregrounds":
+        elif cfg.acceptance_prob_mode == "rank":
+            # every active box of the batch in ONE AP loss (the reference
+            # ranks the flattened [B*R] tensors), the top max_ap_boxes
+            # active boxes of each image by score gathered first; a target
+            # of -1 marks a slot the AP loss ignores
+            ap_scores = accept_prob
+            if cfg.rank_with_class_confidence:
+                ap_scores = ap_scores * prob[..., 1:].amax(-1)
+            rank_tar = torch.where(accept_sel,
+                                   torch.where(accept_tar >= 0.6, 1.0, 0.0),
+                                   -1.0)
+            key = torch.where(accept_sel, ap_scores, float("-inf"))
+            idx = top_k_indices(key, min(cfg.max_ap_boxes, r))
+            valid = torch.gather(key, 1, idx) > float("-inf")
+            sc = torch.where(valid, torch.gather(ap_scores, 1, idx), 0.0)
+            tar = torch.where(valid, torch.gather(rank_tar, 1, idx), -1.0)
+            loss_ap = ap_loss(sc.reshape(-1), tar.reshape(-1)) \
+                * cfg.acceptance_prob_lambda
+        elif cfg.acceptance_prob_mode in ("likelihood", "regress"):
+            if cfg.acceptance_prob_mode == "likelihood" and \
+                    cfg.boxes_for_acceptance_prob == "foregrounds":
                 lp = -torch.log(accept_prob)
             else:
-                # the reference's likelihood is a plain L1 for 'all' and
-                # 'overlaps' (it branches on the box set first)
+                # regress, and the reference's likelihood for 'all' and
+                # 'overlaps' (it branches on the box set first): a plain L1
                 lp = _abs(accept_prob - accept_tar)
             if cfg.boxes_for_acceptance_prob == "all":
                 lp = lp * labels_weight.detach()
             if cfg.weigh_acceptance_prob_regularization:
                 lp = lp * accept_tar
             loss_ap = _masked_mean(lp, accept_sel) * cfg.acceptance_prob_lambda
+        else:
+            raise NotImplementedError(cfg.acceptance_prob_mode)
         total = total + loss_ap
         stats["bbox_prob"] = loss_ap
 
@@ -463,7 +474,7 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
                     has_fg = fg_sel.any(1)
                     loss_nms = torch.where(has_fg, ap_loss(logits, targets),
                                            0.0).sum() / has_fg.sum().clamp_min(1)
-            else:                                 # classify
+            elif cfg.after_nms_loss_mode == "classify":
                 n_pos = torch.where(fg_sel, targets_after, 0.0).sum()
                 n_neg = fg_sel.sum() - n_pos
                 w_neg = torch.where(
@@ -472,6 +483,11 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
                 bce = _bce(scores_after, targets_after)
                 bce = bce * torch.where(targets_after == 0, w_neg, 1.0)
                 loss_nms = _masked_mean(bce, fg_sel)
+            elif cfg.after_nms_loss_mode == "regress":
+                loss_nms = _masked_mean(_abs(scores_after - targets_after),
+                                        fg_sel)
+            else:
+                raise NotImplementedError(cfg.after_nms_loss_mode)
             loss_nms = loss_nms * cfg.after_nms_lambda
             total = total + loss_nms
             stats["after_nms"] = loss_nms
@@ -513,6 +529,11 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         else:
             terms.append(_smooth_l1(bbox_3d[..., 6], t3d_n[..., 6]))
             l_axis = l_head = None
+
+        if cfg.weigh_3D_regression_loss_by_gt_iou3d:
+            terms = [t * accept_tar for t in terms]
+            if l_axis is not None:
+                l_axis, l_head = l_axis * accept_tar, l_head * accept_tar
 
         # self-balancing lambda from the un-weighted 3D loss magnitude
         dynamic = cfg.bbox_un_dynamic and accept_prob is not None

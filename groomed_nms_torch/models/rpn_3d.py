@@ -135,10 +135,13 @@ class RPN3D(nn.Module):
                 c_in = cfg.acceptance_prob_num_channels
             self.accept_out = nn.Conv2d(c_in, a * cfg.accept_channels, 1)
 
-    def forward(self, images):
-        """images [B, 3, H, W] (normalised) -> RPNOutputs."""
+    def forward(self, images, return_base=False):
+        """images [B, 3, H, W] (normalised) -> RPNOutputs, and with
+        ``return_base`` the trunk's features too (the video model's pose
+        branch reads them)."""
         cfg = self.config
-        h = F.relu(self.prop_feats(self.backbone(images)))
+        feats = self.backbone(images)
+        h = F.relu(self.prop_feats(feats))
         fh, fw = h.shape[2], h.shape[3]
         out = RPNOutputs(fused_raw=_to_rows(self.head(h), cfg.per_anchor),
                          feat_hw=(fh, fw), num_classes=cfg.num_classes,
@@ -152,4 +155,4 @@ class RPN3D(nn.Module):
                 out.accept_cls = torch.sigmoid(ap)
             else:
                 out.accept_prob = torch.sigmoid(ap[..., 0])
-        return out
+        return (out, feats) if return_base else out

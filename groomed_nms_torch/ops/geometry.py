@@ -1,5 +1,5 @@
-"""Cuboid corners and orientation conversions (counterpart of
-``groomed_nms_tpu/ops/geometry.py``).
+"""Cuboid corners, camera projection and orientation conversions
+(counterpart of ``groomed_nms_tpu/ops/geometry.py``).
 
 KITTI camera frame: X right, Y down, Z forward.  Corner numbering is the
 reference's ``iou_3d_convention``: corners 2, 3, 6, 7 are the bottom face.
@@ -56,3 +56,28 @@ def alpha_to_rot_y(alpha, z3d, x3d):
 def rot_y_to_alpha(ry3d, z3d, x3d):
     """Global yaw rotY -> observation angle alpha."""
     return snap_to_pi(ry3d - torch.atan2(-z3d, x3d) - 0.5 * math.pi)
+
+
+def project_3d_points(p2, points_3d):
+    """Project camera-frame points [..., 3, N] through a 4x4 ``p2``
+    (broadcast over leading axes) -> [..., 3, N] of (u, v, z); the
+    homogeneous divide is skipped where |z| <= 1e-2.  The contraction is
+    written as products and a sum, so no TF32 matmul can enter."""
+    pts4 = torch.cat([points_3d, torch.ones_like(points_3d[..., :1, :])],
+                     dim=-2)
+    proj = (p2[..., :, :, None] * pts4[..., None, :, :]).sum(-2)
+    z = proj[..., 2:3, :]
+    far = z.abs() > 1e-2
+    uv = torch.where(far, proj[..., :2, :] / torch.where(far, z, 1.0),
+                     proj[..., :2, :])
+    return torch.cat([uv, z], dim=-2)
+
+
+def project_3d_box(p2, x3d, y3d, z3d, w3d, h3d, l3d, ry3d):
+    """[..., 4] = [x1, y1, x2, y2]: the 2D box enclosing a cuboid's eight
+    projected corners."""
+    proj = project_3d_points(p2, get_corners_of_cuboid(x3d, y3d, z3d, w3d,
+                                                       h3d, l3d, ry3d))
+    u, v = proj[..., 0, :], proj[..., 1, :]
+    return torch.stack([u.amin(-1), v.amin(-1), u.amax(-1), v.amax(-1)],
+                       dim=-1)

@@ -226,7 +226,8 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
         mark("forward")
         outputs = {"cls": out.cls, "prob": out.prob, "bbox_2d": out.bbox_2d,
                    "bbox_3d": out.bbox_3d, "accept_prob": out.accept_prob,
-                   "accept_cls": out.accept_cls}
+                   "accept_cls": out.accept_cls,
+                   "uncertainty": out.uncertainty}
         gt = GTBatch(*(batch[name] for name in GTBatch._fields))
         loss, stats, state.un_state = rpn_3d_loss(
             outputs, rois, rois_3d, gt, bbox_means, bbox_stds,

@@ -10,7 +10,8 @@
 ``groomed_nms_torch.utils.weights.from_flax``; ``from-pth`` maps a reference
 PyTorch RPN ``state_dict`` with
 ``groomed_nms_torch.utils.torch_weights.convert_rpn_checkpoint``.  Both load
-the result into the port's ``RPN3D`` (every tensor, no extra) and write
+the result into the port's ``RPN3D`` (``VideoRPN3D`` for a ``kalman``
+config; every tensor, no extra) and write
 ``output/<name>/weights/checkpoint_<step>.pt`` (weights only, no optimizer
 state), which ``scripts/evaluate_torch.py`` restores.  This maintainer tool
 imports JAX for ``from-jax``; the port itself never does.
@@ -37,6 +38,8 @@ def from_jax(args, cfg, out_dir):
     ensure_requested_platform()
     from groomed_nms_tpu.config import load_config as jax_load_config
     from groomed_nms_tpu.models import RPN3D as JaxRPN3D
+    from groomed_nms_tpu.models.video import (VideoConfig as JaxVideoConfig,
+                                              VideoRPN3D as JaxVideoRPN3D)
     from groomed_nms_tpu.training import (build_lr_schedule, build_optimizer,
                                           create_train_state,
                                           restore_checkpoint)
@@ -47,8 +50,12 @@ def from_jax(args, cfg, out_dir):
     a = _num_anchors(cfg, out_dir, args.num_anchors)
     tx = build_optimizer(jcfg.solver_type,
                          build_lr_schedule(jcfg.lr, jcfg.max_iter))
-    state = create_train_state(JaxRPN3D(jcfg.rpn_config(a)), (1, 64, 64, 3),
-                               tx)
+    if jcfg.model == "kalman":
+        model = JaxVideoRPN3D(JaxVideoConfig(rpn=jcfg.rpn_config(a)))
+        shape = (1, max(1, jcfg.video_count), 64, 64, 3)
+    else:
+        model, shape = JaxRPN3D(jcfg.rpn_config(a)), (1, 64, 64, 3)
+    state = create_train_state(model, shape, tx)
     state = restore_checkpoint(out_dir, state, args.step,
                                restore_optimizer=False)
     return a, from_flax(state.params, state.batch_stats), int(state.step)
@@ -60,7 +67,8 @@ def from_pth(args, cfg, out_dir):
     from groomed_nms_torch.utils.torch_weights import convert_rpn_checkpoint
 
     if cfg.has_vel:
-        raise ValueError("the velocity head waits for the video slice")
+        raise ValueError("the reference's video model has no .pth loader "
+                         "here; convert its JAX checkpoint with from-jax")
     payload = torch.load(args.pth, map_location="cpu", weights_only=True)
     sd = payload.get("state_dict", payload)
     a = _num_anchors(cfg, out_dir, args.num_anchors)
@@ -90,13 +98,15 @@ def main(argv=None):
 
     from groomed_nms_torch.config import load_config
     from groomed_nms_torch.models.rpn_3d import RPN3D
+    from groomed_nms_torch.models.video import VideoConfig, VideoRPN3D
     from groomed_nms_torch.training.checkpoint import save_checkpoint
 
     cfg = load_config(args.config)
     out_dir = os.path.join(args.output, cfg.name)
     convert = from_jax if args.source == "from-jax" else from_pth
     a, state_dict, step = convert(args, cfg, out_dir)
-    model = RPN3D(cfg.rpn_config(a))
+    model = VideoRPN3D(VideoConfig(rpn=cfg.rpn_config(a))) \
+        if cfg.model == "kalman" else RPN3D(cfg.rpn_config(a))
     model.load_state_dict(state_dict)
     path = save_checkpoint(out_dir, model, step=step)
     print("wrote", path)

@@ -5,7 +5,9 @@ Usage:
       [--data-root data] [--output output] [--max-iter N] [--fresh] \
       [--set KEY=VALUE ...] [--cache-images] [--device cuda]
 
-The port's twin of ``scripts/train.py``: build the training imdb, learn the
+The port's twin of ``scripts/train.py`` for the still-image models
+(``rpn_3d``, and ``rpn_3d_un``, whose ``RPN3D`` predicts the uncertainty
+channel): build the training imdb, learn the
 anchor priors and bbox statistics (``prepare_anchors``, cached as
 ``anchors.npz``; a ``copy_stats`` config reuses its pretrained run's), build
 the model, the optimizer and the freezing, then start from ``--restore N``,
@@ -200,12 +202,12 @@ def main(argv=None):
     cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.max_iter:
         cfg = dataclasses.replace(cfg, max_iter=args.max_iter)
-    if cfg.model != "rpn_3d":
+    if cfg.model == "kalman":
         raise NotImplementedError(
-            f"model={cfg.model!r} is not ported to groomed_nms_torch: the "
-            "_un model waits for ROADMAP queue 1, item 5 (the loss branches "
-            "that losses/rpn_3d.py::_check_ported refuses), the video model "
-            "for item 11")
+            "model='kalman' (the video stage's training: VideoTrainLoader, "
+            "has_vel, the pose and fused-track losses) is not ported to "
+            "groomed_nms_torch (ROADMAP queue 1, item 11); "
+            "scripts/test_kalman_torch.py serves the video model")
 
     out_dir = os.path.join(args.output, cfg.name)
     os.makedirs(out_dir, exist_ok=True)

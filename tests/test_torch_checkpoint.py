@@ -135,6 +135,47 @@ def test_from_jax_reproduces_the_jax_forward(tmp_path):
     _outputs_close(*_forward_both(jmodel, variables, model))
 
 
+def test_from_jax_converts_the_video_model(tmp_path):
+    """A JAX ``VideoRPN3D`` snapshot of a ``kalman`` config (uncertainty and
+    velocity channels, the pose branch), converted by ``from-jax``: the
+    port's ``VideoRPN3D`` restores every tensor and its frame outputs and
+    poses equal JAX's on a 2-frame clip."""
+    from groomed_nms_tpu.models.video import VideoConfig as JaxVideoConfig
+    from groomed_nms_tpu.models.video import VideoRPN3D as JaxVideoRPN3D
+
+    from groomed_nms_torch.models.video import VideoConfig, VideoRPN3D
+
+    jcfg = jax_load_config("tiny_video_synthetic")
+    jmodel = JaxVideoRPN3D(JaxVideoConfig(rpn=jcfg.rpn_config(NUM_ANCHORS)))
+    tx = build_optimizer(jcfg.solver_type, build_lr_schedule(jcfg.lr, 10))
+    state = create_train_state(jmodel, (1, 2, 64, 64, 3), tx,
+                               rng=jax.random.PRNGKey(4))
+    rs = np.random.default_rng(4)
+    state = state.replace(params=_perturb(state.params, rs),
+                          batch_stats=_perturb(state.batch_stats, rs))
+    out_root = str(tmp_path / "output")
+    run = os.path.join(out_root, "tiny_video_synthetic")
+    jax_save_checkpoint(run, state, step=5)
+    _script().main(["from-jax", "--config", "tiny_video_synthetic",
+                    "--output", out_root, "--num-anchors", str(NUM_ANCHORS)])
+    cfg = load_config("tiny_video_synthetic")
+    model = VideoRPN3D(VideoConfig(rpn=cfg.rpn_config(NUM_ANCHORS)))
+    sd = torch.load(checkpoint.checkpoint_path(run, 5),
+                    weights_only=True)["model"]
+    assert sorted(sd) == sorted(model.state_dict())
+    assert checkpoint.restore_checkpoint(run, model) == 5
+    x = np.random.default_rng(5).normal(size=(1, 2, 64, 128, 3)).astype(
+        np.float32)
+    jout = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(
+        {"params": state.params, "batch_stats": state.batch_stats},
+        jnp.asarray(x))
+    with torch.no_grad():
+        tout = model.eval()(torch.from_numpy(x).permute(0, 1, 4, 2, 3))
+    _outputs_close(jout.frame_outputs, tout.frame_outputs)
+    assert tout.frame_outputs.bbox_3d.shape[-1] == 11
+    np.testing.assert_allclose(tout.poses.numpy(), jout.poses, atol=1e-4)
+
+
 # -- the reference's .pth -----------------------------------------------------
 
 def _reference_state_dict(rs, a, c, prop, accept, un):

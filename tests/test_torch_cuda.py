@@ -787,3 +787,99 @@ def test_train_loader_batch_through_a_stage2_step(cuda, tmp_path):
     assert all(bool(torch.isfinite(v)) for v in stats.values())
     after = run.model.state_dict()
     assert any(not torch.equal(after[k], before[k]) for k in before)
+
+
+# ---------------------------------------------------------------------------
+# the video slice
+# ---------------------------------------------------------------------------
+
+_TRACK_FIELDS = ("valid", "ids", "next_id", "X", "C", "A", "box2d", "un")
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_video_track_on_cuda_matches_cpu(cuda, seed):
+    """The tracker over a synthetic clip (matches, misses, deaths, the
+    kill-all frame) on the card in f64 under sync debug mode "error" (no
+    host synchronisation): every frame's tracks equal the CPU path's,
+    masks and ids identical, numbers within 1e-9 (+ 1e-9 |x|)."""
+    from groomed_nms_torch.data.synthetic import (kitti_p2,
+                                                  make_synthetic_track_clip)
+    from groomed_nms_torch.models.video import VideoConfig, video_track
+
+    p2 = np.concatenate([kitti_p2(), [[0.0, 0.0, 0.0, 1.0]]])
+    clip = [torch.from_numpy(a) for a in
+            make_synthetic_track_clip(seed, m=64, n_objects=24, p2=p2)]
+    cfg = VideoConfig()
+    p2 = torch.from_numpy(p2)
+    _, ref = video_track(*clip, p2, cfg)
+    args = [a.to(cuda) for a in (*clip, p2)]
+    video_track(*args, cfg)                               # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, got = video_track(*args, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(got) == len(ref) and int(ref[-1].valid.sum()) > 0
+    for g, r in zip(got, ref):
+        for f in _TRACK_FIELDS:
+            a, b = getattr(g, f).cpu(), getattr(r, f)
+            if f in ("valid", "ids", "next_id"):
+                assert torch.equal(a, b), f
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9)
+
+
+def test_greedy_nms_kernel_at_the_video_shape(cuda):
+    """K2 at the measurements' shape [4, 64], rows score-sorted and the
+    last slots padding (score 0, a zero box): the plain version's keep."""
+    boxes, scores = _nms_case(np.random.default_rng(64), 4, 64)
+    boxes[scores <= 0] = 0.0
+    boxes, scores = torch.from_numpy(boxes), torch.from_numpy(scores)
+    ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4)
+    got = kernels.greedy_nms(boxes.to(cuda), scores.to(cuda),
+                             nms_threshold=0.4)
+    assert torch.equal(got.cpu(), ref) and not ref[scores <= 0].any()
+
+
+def test_extract_measurements_on_cuda_matches_cpu(cuda):
+    """K1 and K2 on the card (one launch each) against the CPU path on one
+    clip's head tensor: the same kept set, the kept rows within rtol 1e-5,
+    atol 1e-4."""
+    from groomed_nms_torch.anchors import (generate_anchor_templates,
+                                           locate_anchors)
+    from groomed_nms_torch.models.rpn_3d import RPNOutputs
+    from groomed_nms_torch.models.video import (VideoConfig,
+                                                extract_measurements)
+
+    rs = np.random.default_rng(3)
+    templates = generate_anchor_templates([16, 32, 64], [0.5, 1.0, 1.5], 16)
+    priors = np.concatenate([templates, np.abs(rs.normal(size=(9, 8))) + 1],
+                            1).astype(np.float32)
+    priors[:, 4] = 20.0
+    rois = locate_anchors(priors, (8, 26), 16)
+    rois_3d = priors[rois[:, 4].astype(np.int64), 4:]
+    fused = rs.normal(0, 0.5, (4, rois.shape[0], 20)).astype(np.float32)
+    fused[..., 4:8] *= 0.3
+    p2 = np.tile(np.eye(4, dtype=np.float32)[None], (4, 1, 1))
+    p2[:, 0, 0] = p2[:, 1, 1] = 700.0
+    args = [rois, rois_3d, p2, np.full(4, 0.5, np.float32),
+            rs.normal(0, 0.1, 14).astype(np.float32),
+            rs.uniform(0.5, 1.5, 14).astype(np.float32)]
+    cfg = VideoConfig(score_thres=0.4)
+
+    def run(device):
+        out = RPNOutputs(fused_raw=torch.from_numpy(fused).to(device),
+                         feat_hw=(8, 26), num_classes=4, n_box3d=11)
+        return extract_measurements(
+            out, *(torch.from_numpy(a).to(device) for a in args), cfg)
+
+    meas_c, keep_c = run("cpu")
+    k1, k2 = kernels.fused_head_scores.launches, kernels.greedy_nms.launches
+    meas_g, keep_g = run(cuda)
+    torch.cuda.synchronize()
+    assert kernels.fused_head_scores.launches == k1 + 1
+    assert kernels.greedy_nms.launches == k2 + 1
+    assert torch.equal(keep_g.cpu(), keep_c) and keep_c.sum() > 8
+    torch.testing.assert_close(meas_g.cpu()[keep_c], meas_c[keep_c],
+                               rtol=1e-5, atol=1e-4)

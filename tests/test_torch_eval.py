@@ -130,6 +130,34 @@ def test_kitti_3d_matches_jax(split, tmp_path, single):
     assert rows >= 5, "no detections written: the comparison checks nothing"
 
 
+def test_kitti_3d_of_the_un_model_matches_jax(split, tmp_path):
+    """The ``_un`` model (uncertainty channel, no acceptance branch), as
+    ``scripts/evaluate_torch.py`` serves ``kitti_3d_uncertainty``: the
+    uncertainty folds into the ranking score and, by ``use_un_for_score``,
+    into the written score; the same txt files as JAX's tester."""
+    rs = np.random.default_rng(2)
+    priors = _anchors(rs)
+    rois, rois_3d = _rois(priors)
+    bbox_means = rs.normal(0, 0.1, 13).astype(np.float32)
+    bbox_stds = rs.uniform(0.5, 1.5, 13).astype(np.float32)
+    jmodel, variables, tmodel = tiny_models(
+        seed=2, num_anchors=NUM_ANCHORS, predict_uncertainty=True)
+    un = dict(has_un=True, predict_acceptance_prob=False, score_thres=0.05)
+    jcfg = jax_config.load_config("tiny_synthetic").replace(**un)
+    tcfg = dataclasses.replace(config.load_config("tiny_synthetic"), **un)
+    assert tcfg.use_un_for_score and tcfg.detect_config().use_un_for_score
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jax_tester.test_kitti_3d(
+        jcfg, jmodel, variables["params"], variables["batch_stats"], rois,
+        rois_3d, bbox_means, bbox_stds, jax_build_imdb(split, "validation"),
+        jdir, batch_size=2, skip_eval=True)
+    tester.test_kitti_3d(
+        tcfg, tmodel, rois, rois_3d, bbox_means, bbox_stds,
+        build_imdb(split, "validation"), tdir, batch_size=2, skip_eval=True)
+    rows = assert_same_rows(read_rows(tdir), read_rows(jdir))
+    assert rows >= 5, "no detections written: the comparison checks nothing"
+
+
 def test_kitti_3d_refuses_a_stale_imdb(split, tmp_path):
     """Grouped mode: a decoded size that contradicts the imdb would scale
     that frame's boxes wrongly; the first batch raises."""

@@ -2,8 +2,9 @@
 assignment, the AP loss and ``rpn_3d_loss`` on shared head tensors.
 
 The JAX loss is compiled once per config (value and gradient together); the
-port runs its CPU path, K3 through its plain version.  Tolerances: helpers
-and targets at rtol 1e-5 / atol 1e-5 (the same f32 formulas); every stats
+port runs its CPU path, K3 through its plain version.  Every branch of the
+JAX loss is held, ``has_vel`` (which still raises) aside.  Tolerances:
+helpers and targets at rtol 1e-5 / atol 1e-5 (the same f32 formulas); every stats
 term at rtol 1e-4, atol 1e-6; gradients with respect to every head tensor
 at rtol 1e-3, atol 1e-5 (sums over the batch in other orders, and the AP
 loss's [N, N] products).
@@ -265,17 +266,30 @@ CONFIGS = [
     ("groomed_nms_threshold_0_5", {}),
     ("groomed_nms", {"overlap_in_nms": "3d"}),
     ("groomed_nms", {"overlap_in_nms": "2d_3d"}),
+    # the _un stage as shipped (the uncertainty in the acceptance
+    # probability's place, the self-balancing lambda), and with a fixed one
+    ("kitti_3d_uncertainty", {}),
+    ("kitti_3d_uncertainty", {"bbox_un_dynamic": False,
+                              "bbox_un_lambda": 0.3}),
+    ("groomed_nms", {"acceptance_prob_lambda": 0.5,
+                     "acceptance_prob_mode": "rank",
+                     "rank_with_class_confidence": True}),
+    ("groomed_nms", {"focal_loss": 0.5, "acceptance_prob_lambda": 0.5,
+                     "acceptance_prob_mode": "regress",
+                     "weigh_3D_regression_loss_by_gt_iou3d": True}),
 ]
 
 
 def _heads(seed, cfg):
     """Raw head tensors (numpy): class logits, 2D deltas, 3D deltas with the
     axis/head logits, and the acceptance logits (one per classifier in
-    classify mode)."""
+    classify mode) and, under ``has_un``, the uncertainty logit."""
     rs = np.random.default_rng(seed)
     heads = {"cls": rs.normal(0, 1.5, (B, R, 4)),
              "bbox_2d": rs.normal(0, 0.1, (B, R, 4)),
              "bbox_3d": rs.normal(0, 0.2, (B, R, 10))}
+    if cfg.has_un:
+        heads["un"] = rs.normal(0, 1.5, (B, R))
     if cfg.predict_acceptance_prob:
         bins = cfg.acceptance_prob_classify_bins - 1 \
             if cfg.acceptance_prob_mode == "classify" else 1
@@ -299,6 +313,8 @@ def _outputs(xp, heads, classify):
             out["accept_cls"] = sigmoid(heads["accept"])
         else:
             out["accept_prob"] = sigmoid(heads["accept"][..., 0])
+    if "un" in heads:
+        out["uncertainty"] = sigmoid(heads["un"])
     return out
 
 
@@ -342,7 +358,11 @@ def _run_both(name, overrides, gt_seed=7, n_gt=(6, 5), ign=(1, 0)):
                          ids=[n + "".join(f"-{v}" for v in o.values())
                               for n, o in CONFIGS])
 def test_rpn_3d_loss_matches_jax(name, overrides):
-    (jstats, jun, jgrads), (tstats, tun, tgrads) = _run_both(name, overrides)
+    _assert_matches(*_run_both(name, overrides))
+
+
+def _assert_matches(ref, got):
+    (jstats, jun, jgrads), (tstats, tun, tgrads) = ref, got
     assert set(tstats) == set(jstats)
     assert float(jstats["fg_num"]) > 0
     for k in jstats:
@@ -370,7 +390,7 @@ def test_rpn_3d_loss_image_without_gt_has_finite_gradients():
 
 
 @pytest.mark.parametrize("overrides", [
-    {"has_un": True}, {"has_vel": True},
+    {"has_un": True, "bbox_un_dynamic": True}, {"has_vel": True},
     {"predict_acceptance_prob": True, "acceptance_prob_lambda": 0.1,
      "acceptance_prob_mode": "rank"},
     {"predict_acceptance_prob": True, "acceptance_prob_lambda": 0.1,
@@ -379,9 +399,19 @@ def test_rpn_3d_loss_image_without_gt_has_finite_gradients():
     {"use_nms_in_loss": True, "after_nms_loss_mode": "regress"},
 ])
 def test_unported_branches_raise(overrides):
-    cfg = tloss.LossConfig(**overrides)
-    with pytest.raises(NotImplementedError, match=next(iter(
-            k for k in overrides if k not in (
-                "predict_acceptance_prob", "acceptance_prob_lambda",
-                "use_nms_in_loss")))):
-        tloss.rpn_3d_loss({}, None, None, None, None, None, None, cfg)
+    """The branches the port once refused: ``has_vel`` (the video stage's
+    training) still raises; every other one now matches JAX's value and
+    gradients, on the still-image model without acceptance branch (has_un,
+    the GT-IoU3D weighting) or on the groomed model (the rest)."""
+    if "has_vel" in overrides:
+        cfg = tloss.LossConfig(**overrides)
+        with pytest.raises(NotImplementedError, match="has_vel"):
+            tloss.rpn_3d_loss({}, None, None, None, None, None, None, cfg)
+        return
+    base = "kitti_3d_warmup" if {"has_un", "weigh_3D_regression_loss_by_"
+                                 "gt_iou3d"} & set(overrides) else \
+        "groomed_nms"
+    ref, got = _run_both(base, overrides)
+    for k in ("un", "bbox_prob", "after_nms"):
+        assert (k in got[0]) == (k in ref[0]), k
+    _assert_matches(ref, got)

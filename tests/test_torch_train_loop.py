@@ -611,16 +611,89 @@ def test_train_torch_script_on_the_cpu(tree, tmp_path):
 
 
 def test_train_torch_refusals(tree, tmp_path):
-    """No CUDA device without --device cpu, and the models not ported."""
+    """No CUDA device without --device cpu, and the video model's training,
+    not ported."""
     script = _train_torch()
     base = ["--data-root", tree, "--output", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             script.main(["--config", "tiny_synthetic", *base])
-    for name, model in (("kitti_3d_uncertainty", "rpn_3d_un"),
-                        ("tiny_video_synthetic", "kalman")):
-        with pytest.raises(NotImplementedError, match=model):
-            script.main(["--config", name, "--device", "cpu", *base])
+    with pytest.raises(NotImplementedError, match="kalman"):
+        script.main(["--config", "tiny_video_synthetic", "--device", "cpu",
+                     *base])
+
+
+UN_STAGE = ("name='tiny_un'", "model='rpn_3d_un'", "has_un=True",
+            "bbox_un_dynamic=True", "predict_acceptance_prob=False",
+            "use_nms_in_loss=False", "after_nms_lambda=0.0",
+            "use_acceptance_prob_in_regression_loss=False",
+            "copy_stats=True", "do_test=False", "display=1")
+
+
+def test_train_torch_un_stage_on_the_cpu(tree, tmp_path, caplog):
+    """The ``_un`` stage (``kitti_3d_uncertainty``'s recipe on the tiny
+    model) through train_torch's ``main()``, warm-started from a warmup
+    run: the tensors it keeps fresh are those of JAX's key-intersection
+    rule (``_intersect_restore``: the head, one channel wider a row),
+    logged; two steps train, with the ``un`` and ``conf`` stats in
+    metrics.csv.
+
+    JAX's own ``restore_checkpoint`` takes its strict path here (the trees
+    have the same keys), and Orbax does not check shapes: it returns the
+    warmup's narrower head, and the ``_un`` model's first apply raises
+    ``ScopeParamShapeError``.  The test pins that too, so the port's rule
+    is seen to be the one JAX intends."""
+    base = dataclasses.replace(
+        jax_config.load_config("tiny_synthetic").rpn_config(6),
+        predict_acceptance_prob=False)
+    tx = jax_optimizer("sgd", jax_schedule(0.004, 100))
+    warm = create_train_state(JaxRPN3D(base), (1, 64, 128, 3), tx,
+                              rng=jax.random.PRNGKey(1))
+    un_model = JaxRPN3D(dataclasses.replace(base, predict_uncertainty=True))
+    un = create_train_state(un_model, (1, 64, 128, 3), tx,
+                            rng=jax.random.PRNGKey(2))
+    jax_checkpoint.save_checkpoint(str(tmp_path / "jax"), warm, step=2)
+    strict = jax_checkpoint.restore_checkpoint(
+        str(tmp_path / "jax"), un, 2, restore_optimizer=False)
+    with pytest.raises(Exception, match="ScopeParamShapeError|shape"):
+        un_model.apply({"params": strict.params,
+                        "batch_stats": strict.batch_stats},
+                       jnp.zeros((1, 64, 128, 3)), train=False)
+    merged = jax_checkpoint._intersect_restore(
+        jax.device_get(un.params), jax.device_get(warm.params), "params",
+        logging.getLogger(__name__))
+    flat = lambda t: {"/".join(str(getattr(k, "key", k)) for k in p): v
+                      for p, v in jax.tree_util.tree_flatten_with_path(t)[0]}
+    m, w = flat(merged), flat(jax.device_get(warm.params))
+    fresh_paths = {p for p in m if p not in w or
+                   np.shape(m[p]) != np.shape(w[p])}
+    assert all(np.array_equal(m[p], w[p]) for p in m if p not in fresh_paths)
+    fresh_j = _as_torch_keys(merged, jax.device_get(un.batch_stats),
+                             fresh_paths)
+    assert fresh_j == {"head.weight", "head.bias"}
+
+    script = _train_torch()
+    out = str(tmp_path / "out")
+    common = ["--data-root", tree, "--output", out, "--device", "cpu",
+              "--max-iter", "2"]
+    script.main(["--config", "tiny_synthetic", *common,
+                 *itertools.chain(*(("--set", s) for s in WARMUP
+                                    + ("do_test=False",)))])
+    warm_run = os.path.join(out, "tiny_warmup")
+    with caplog.at_level(logging.WARNING):
+        summary = script.main([
+            "--config", "tiny_synthetic", *common,
+            *itertools.chain(*(("--set", s) for s in UN_STAGE
+                               + (f"pretrained={warm_run!r}",)))])
+    rep = summary["restore"]
+    assert set(rep["mismatched"]) == fresh_j
+    assert rep["fresh"] == [] and rep["dropped"] == []
+    assert "kept fresh due to shape mismatch" in caplog.text
+    assert summary["steps"] == 2 and summary["step"] == 2
+    with open(os.path.join(out, "tiny_un", "metrics.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()]
+    assert {"un", "conf"} <= set(rows[0]) and len(rows) == 3
+    assert all(np.isfinite(float(v)) for row in rows[1:] for v in row)
 
 
 def test_flagship_train_honours_batch_skip():

@@ -168,14 +168,16 @@ def test_batchnorm_eval_mode_is_unchanged():
 # ---------------------------------------------------------------------------
 
 def _jax_train_steps(variables, rois, rois_3d, gt, x, means, stds, sched,
-                     dtype):
-    """Two JAX ``make_train_step`` steps of the tiny model in ``dtype``;
-    returns [(state_dict-named params and statistics, stats, un lambda)]."""
+                     dtype, config="groomed_nms",
+                     rpn_kw=(("predict_acceptance_prob", True),)):
+    """Two JAX ``make_train_step`` steps of the tiny model in ``dtype`` with
+    ``config``'s loss; returns [(state_dict-named params and statistics,
+    stats, un lambda)]."""
     cast = lambda t: jax.tree_util.tree_map(
         lambda a: jnp.asarray(a, dtype) if np.asarray(a).dtype == np.float32
         else jnp.asarray(a), t)
     jmodel = JaxRPN3D(JaxRPNConfig(backbone=jax_tiny(dtype), **TINY,
-                                   predict_acceptance_prob=True))
+                                   **dict(rpn_kw)))
     tx = jax_optimizer("sgd", jax_schedule(*sched))
     params = cast(variables["params"])
     state = JaxTrainState(
@@ -184,7 +186,7 @@ def _jax_train_steps(variables, rois, rois_3d, gt, x, means, stds, sched,
         opt_state=tx.init(params), un_state=cast(JaxUnState.init()),
         tx=tx, apply_fn=jmodel.apply)
     step = jax.jit(jax_make_train_step(
-        jax_load_config("groomed_nms").loss_config(), cast(rois),
+        jax_load_config(config).loss_config(), cast(rois),
         cast(rois_3d), cast(means), cast(stds)))
     batch = cast({"images": x, **gt})
     out = []
@@ -261,6 +263,63 @@ def test_train_step_matches_jax_over_two_steps():
         assert tstate.step == step + 1
         np.testing.assert_allclose(float(tstate.un_state.lam), lam32,
                                    rtol=1e-4)
+
+
+def test_un_train_step_matches_jax_in_f64():
+    """Two steps of the ``_un`` stage (``kitti_3d_uncertainty``'s loss: the
+    uncertainty weights the 3D terms and drives the (1 - conf) term with the
+    self-balancing lambda) on the tiny model with the uncertainty channel,
+    the port in f64 against JAX ``make_train_step`` in f64 (the loss runs
+    in f32 in both: the head is cast to f32): stats and the lambda at
+    STEP_STATS_RTOL, every tensor within STEP_PARAM_REL of its largest
+    magnitude; the uncertainty channel's weights move."""
+    _, variables, tmodel = tiny_models(seed=6, predict_uncertainty=True)
+    variables["params"]["head"]["kernel"] *= np.float32(0.1)
+    tmodel.load_state_dict(from_flax(variables["params"],
+                                     variables["batch_stats"]))
+    tmodel.double()
+    rois, rois_3d = _rois()
+    gt = _gt_batch(7)
+    x = _images(6)
+    means, stds = np.zeros(13, np.float32), np.ones(13, np.float32)
+    sched = (0.01, 100)
+    with jax.enable_x64(True):
+        ref = _jax_train_steps(variables, rois, rois_3d, gt, x, means, stds,
+                               sched, jnp.float64,
+                               config="kitti_3d_uncertainty",
+                               rpn_kw=(("predict_uncertainty", True),))
+    tstate = TrainState(tmodel, build_optimizer(
+        tmodel.parameters(), "sgd", build_lr_schedule(*sched)),
+        UncertaintyState.init())
+    f64 = lambda a: torch.from_numpy(np.asarray(a)).double() \
+        if np.asarray(a).dtype.kind == "f" else torch.from_numpy(a)
+    tstep = make_train_step(
+        load_config("kitti_3d_uncertainty").loss_config(), f64(rois),
+        f64(rois_3d), f64(means), f64(stds))
+    tbatch = {"images": f64(x).permute(0, 3, 1, 2),
+              **{k: f64(v) for k, v in gt.items()}}
+    w0 = tmodel.head.weight.detach().clone()
+    per = tmodel.config.per_anchor
+    for step, (params, jstats, lam) in enumerate(ref):
+        tstats = {k: float(v) for k, v in tstep(tstate, tbatch).items()}
+        assert set(tstats) == set(jstats) and "un" in tstats
+        assert jstats["fg_num"] > 0 and jstats["un"] > 0
+        for k in jstats:
+            np.testing.assert_allclose(tstats[k], jstats[k],
+                                       rtol=STEP_STATS_RTOL,
+                                       atol=STEP_STATS_ATOL,
+                                       err_msg=f"step {step}: {k}")
+        got = tmodel.state_dict()
+        for k, r in params.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            err = (got[k] - r.double()).abs().max().item()
+            assert err <= STEP_PARAM_REL * r.abs().max().item(), \
+                f"step {step}: {k} off f64 by {err:.3e}"
+        np.testing.assert_allclose(float(tstate.un_state.lam), lam,
+                                   rtol=STEP_STATS_RTOL)
+    un_rows = slice(per - 1, None, per)         # each anchor's last channel
+    assert not torch.equal(tmodel.head.weight[un_rows], w0[un_rows])
 
 
 def test_fuse_preprocess_feeds_the_step():
