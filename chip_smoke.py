@@ -127,7 +127,34 @@ Phases, in order; any failure raises and exits non-zero:
                 scripts/train_torch.py on phase 13's tree, warm-started from
                 its stage 1: only the head of another shape, the un stat
                 finite every step, the uncertainty channel moved, ms/step;
- 15. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+ 15. video train -- the video stage's training on a synthetic tracking tree
+                (16 training records of 4 frames at 375x1242, seed 41) and
+                a perturbed _un run of its own (as phase 14 builds one):
+                the anchors.npz a kitti_3d_uncertainty run learns on the
+                tree (no velocity column) and a checkpoint of that anchor
+                count; (a) scripts/train_pose_torch.py's main()
+                (kitti_3d_full at 512x1760 f32, 10 steps from that _un
+                run): copy_stats turns the _un run's statistics down, so
+                the script learns the detector run's anchors and 14-column
+                statistics on the card (velocity statistics learned, equal
+                to prepare_anchors on the CPU path), the pose loss finite,
+                only pose_net moved, every other tensor bit-identical to the
+                _un run's; (b)
+                scripts/train_torch.py --config kitti_3d_full warm-started
+                from that _un run and (a)'s pose npz, 10 steps, then auto-
+                resumed to 14: only the velocity channel fresh, the vel
+                term finite and rows with a velocity target every step, the
+                backbone and its statistics bit-identical, the velocity
+                channel moved, no K1-K4 or grouping launch; ms/step after
+                step 3, clips/s, the host_wait share and the peak memory of
+                each stage; (c) two steps of tiny_video_synthetic through
+                scripts/train_torch.py's build_training, VideoTrainLoader
+                and device_prefetch on the tree (f64, BatchNorm perturbed)
+                card against the CPU path; (d) fused_track_loss and its gradient
+                with respect to the poses at T 128, M 64, F 4 in f64, card
+                against the CPU path under sync debug mode "error", its host
+                ms and launches;
+ 16. the kernels JSON line (K1 and K2 with a "video" entry each: the check
      at the video path's shape, its times and bound, and its launches),
      then the last line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
@@ -136,6 +163,7 @@ run; every error is printed before it is checked.
 """
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -1852,6 +1880,281 @@ def video_phase(dev, flush, stamp):
     return video
 
 
+# the video stage's training (phase 15): the pose stage and the video stage
+# through their scripts at full width on a synthetic tracking tree (16
+# training records of 4 frames at 375x1242, seed 41), both started from a
+# perturbed _un run of the anchor count the scripts learn on that tree, the
+# video stage also from the pose stage's npz; the learned statistics at
+# phase 13's card-vs-CPU rule.  Two tiny_video_synthetic steps through
+# train_torch's build_training (BatchNorm perturbed, the backbone frozen as
+# shipped) card against CPU path in f64, parameters
+# within 1e-4 of each tensor's max (phase 13's tiny-loop rule; the loss is
+# f32 by design); the fused-track loss and its pose gradient at T 128, M 64,
+# F 4 card against CPU path in f64 within 1e-9 (+ 1e-9 |x|), the tracker's
+# rule
+VTRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_video_train")
+VTRAIN_RECORDS, POSE_STEPS, VIDEO_STEPS, VIDEO_RESUME = 16, 10, 10, 14
+RATE_FROM = 3                         # steps left out of ms/step
+VIDEO_TRAIN_REL, FUSED_TRACK_TOL = 1e-4, 1e-9
+TRAIN_KERNELS = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+                 "group_leaders", "dense_block_eval")
+
+
+def rate_after(summary, k=RATE_FROM):
+    """(ms/step over the steps after the k-th, img/s, host_wait share of
+    the loop's wall) of a training script's summary."""
+    ends, n = summary["step_end_s"], summary["steps"]
+    ms = (summary["train_s"] - ends[k - 1]) / (n - k) * 1e3
+    return (ms, summary["batch_size"] / ms * 1e3,
+            summary["host_wait_s"] / summary["train_s"])
+
+
+def video_train_phase(dev, stamp):
+    """15: the video stage's training (see the module docstring)."""
+    import importlib.util
+    import shutil
+
+    from groomed_nms_torch.data.pipeline import (ClipRecordView,
+                                                 VideoTrainLoader,
+                                                 device_prefetch,
+                                                 prepare_anchors)
+    from groomed_nms_torch.data.synthetic import (kitti_p2,
+                                                  make_synthetic_kitti_video,
+                                                  make_synthetic_track_clip)
+    from groomed_nms_torch.data.tracking import build_tracking_imdb
+    from groomed_nms_torch.losses.fused_track import fused_track_loss
+    from groomed_nms_torch.models.video import VideoConfig, VideoRPN3D
+    from groomed_nms_torch.training.checkpoint import (checkpoint_path,
+                                                       latest_checkpoint,
+                                                       save_checkpoint)
+    from groomed_nms_torch.utils.video_weights import load_video_variables
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(here, "scripts", name + ".py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def counted(fn, *argv):
+        for n in TRAIN_KERNELS:
+            getattr(kernels, n).launches = 0
+        summary = fn(list(argv))
+        return summary, {n: getattr(kernels, n).launches
+                         for n in TRAIN_KERNELS}
+
+    shutil.rmtree(VTRAIN_DIR, ignore_errors=True)
+    data = os.path.join(VTRAIN_DIR, "data")
+    out = os.path.join(VTRAIN_DIR, "output")
+    t0 = time.perf_counter()
+    root = os.path.join(data, "kitti_split1")
+    make_synthetic_kitti_video(root, n_train=VTRAIN_RECORDS, n_val=1,
+                               seed=41)
+    views = [ClipRecordView(r) for r in build_tracking_imdb(root,
+                                                            "training")]
+    # the _un run: the anchors a kitti_3d_uncertainty run learns on this
+    # tree, without the velocity column, and a perturbed checkpoint of
+    # that anchor count (templates no synthetic car falls to are dropped,
+    # so it is not the flagship's 36)
+    ucfg = load_config("kitti_3d_uncertainty")
+    un_dir = os.path.join(out, "kitti_3d_uncertainty_perturbed")
+    ua, um, _ = prepare_anchors(ucfg, views, cache_dir=un_dir, device=dev)
+    un_model = RPN3D(ucfg.rpn_config(ua.shape[0]))
+    init_weights(un_model, torch.Generator().manual_seed(8))
+    perturb_(un_model, seed=8)
+    save_checkpoint(un_dir, un_model, step=0)
+    del un_model
+    run_dir = os.path.join(out, "kitti_3d_full")
+    print(f"video train: a tracking tree of {VTRAIN_RECORDS} training "
+          f"records (4 frames at 375x1242) and a perturbed _un run "
+          f"({ua.shape[0]} anchors of {ua.shape[1]} columns, {um.shape[0]} "
+          f"statistics) written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    common = ["--config", "kitti_3d_full", "--data-root", data, "--output",
+              out, "--device", dev.type, "--set", f"pretrained={un_dir!r}"]
+
+    # -- (a) the pose stage: only pose_net moves
+    assert not os.path.exists(os.path.join(run_dir, "anchors.npz"))
+    sp, lp = counted(script("train_pose_torch").main, *common, "--max-iter",
+                     str(POSE_STEPS))
+    cfg = load_config("kitti_3d_full")
+    with np.load(os.path.join(run_dir, "anchors.npz")) as z:
+        anchors, means, stds = z["anchors"], z["bbox_means"], z["bbox_stds"]
+    n_anchors = anchors.shape[0]
+    a_cpu, m_cpu, s_cpu = prepare_anchors(cfg, views, device="cpu")
+    anchors_same = bool(np.array_equal(anchors, a_cpu))
+    mean_err, std_err = stats_close((means, stds), (m_cpu, s_cpu),
+                                    rtol=np.inf)
+    print(f"video train (a): the pose stage learned the detector run's "
+          f"anchors.npz on the card: anchors {list(anchors.shape)} (the _un "
+          f"run's {list(ua.shape)}), {means.shape[0]} statistics, velocity "
+          f"mean {means[13]:.4f} std {stds[13]:.4f}; against prepare_anchors "
+          f"on the CPU path: anchors identical {anchors_same}, means "
+          f"{mean_err:.3e}, stds {std_err:.3e} (rtol {STATS_RTOL:g})",
+          flush=True)
+    assert anchors.shape == (ua.shape[0], 12) and means.shape == (14,)
+    assert anchors_same and max(mean_err, std_err) <= STATS_RTOL
+    assert means[13] != 0 and stds[13] != 1
+    assert np.isfinite(means).all() and np.isfinite(stds).all()
+    # the script's start: seeded init, then the _un rpn (its pose npz did
+    # not exist yet); the end: that rpn and the npz it wrote
+    ref = VideoRPN3D(VideoConfig(rpn=cfg.rpn_config(n_anchors)))
+    init_weights(ref, torch.Generator().manual_seed(cfg.rng_seed))
+    start = {k: v.clone() for k, v in ref.state_dict().items()}
+    load_video_variables(ref, dataclasses.replace(cfg, pretrained=un_dir),
+                         run_dir)
+    trained = {k: v.cpu() for k, v in sp["model"].state_dict().items()}
+    assert all(torch.equal(trained[k], v)
+               for k, v in ref.state_dict().items()), "npz or rpn differ"
+    moved = sorted(k for k in trained if k.startswith("pose_net.")
+                   and not torch.equal(trained[k], start[k]))
+    same = [k for k in trained if not k.startswith("pose_net.")]
+    ms, ips, wait = rate_after(sp)
+    print(f"video train (a): train_pose_torch main(), kitti_3d_full at "
+          f"512x1760 f32, batch {sp['batch_size']} pairs, {sp['steps']} "
+          f"steps over {sp['records']} records: pose loss by step "
+          f"{[round(v, 4) for v in sp['losses']]}; {len(moved)} pose_net "
+          f"tensors moved ({moved}), the other {len(same)} bit-identical to "
+          f"the _un run's; launches {lp}; "
+          f"{ms:.2f} ms/step after step {RATE_FROM} ({ips:.2f} pairs/s, "
+          f"{2 * ips:.2f} frames/s), "
+          f"host_wait {wait:.2%}, peak {(sp['peak_bytes'] or 0) / 1e9:.2f} GB "
+          f"{stamp}", flush=True)
+    assert sp["steps"] == POSE_STEPS and all(np.isfinite(sp["losses"]))
+    assert moved, "the pose branch did not train"
+    assert not any(lp.values()), lp
+    pose_npz = os.path.join(run_dir + "_pose", "pose_net_params.npz")
+    assert os.path.exists(pose_npz)
+    del sp
+
+    # -- (b) the video stage: warm start, 10 steps, auto-resume to 14
+    train = script("train_torch")
+    sv, lv = counted(train.main, *common, "--max-iter", str(VIDEO_STEPS),
+                     "--set", "display=1")
+    rep = sv["restore"]
+    sr, lr_ = counted(train.main, *common, "--max-iter", str(VIDEO_RESUME),
+                      "--set", "display=1")
+    with open(os.path.join(run_dir, "metrics.csv")) as f:
+        rows = [r.split(",") for r in f.read().splitlines()]
+    col = lambda name: [float(r[rows[0].index(name)]) for r in rows[1:]]
+    vel, vel_num = col("vel"), col("vel_num")
+    un_sd = torch.load(checkpoint_path(un_dir, latest_checkpoint(un_dir)),
+                       map_location="cpu", weights_only=True)["model"]
+    ck = torch.load(checkpoint_path(run_dir, VIDEO_RESUME),
+                    map_location="cpu", weights_only=True)["model"]
+    backbone = [k for k in un_sd if k.startswith("backbone.")
+                and not k.endswith("num_batches_tracked")]
+    changed = [k for k in backbone if not torch.equal(ck["rpn." + k],
+                                                       un_sd[k])]
+    per = cfg.rpn_config(n_anchors).per_anchor
+    vel_rows = slice(cfg.num_classes + 4 + 10, None, per)
+    vel_moved = ck["rpn.head.weight"][vel_rows].abs().max().item()
+    ms, ips, wait = rate_after(sv)
+    print(f"video train (b): train_torch main(), kitti_3d_full at 512x1760 "
+          f"f32, batch {sv['batch_size']} clips of 2 frames: warm-started "
+          f"from the _un run (fresh {rep['fresh']}, other shape "
+          f"{rep['mismatched']}, dropped {rep['dropped']}, the velocity "
+          f"channel of {rep['widened']}, pose_net from {rep['pose']}); "
+          f"{sv['steps']} steps, resumed at {sr['start_step']} to "
+          f"{sr['step']}; vel by step {[round(v, 4) for v in vel]}, rows "
+          f"with a velocity target {[int(v) for v in vel_num]}; backbone "
+          f"tensors changed {len(changed)} of {len(backbone)}; the velocity "
+          f"channel's weights up to {vel_moved:.3e}; launches {lv}, {lr_}; "
+          f"{ms:.2f} ms/step after step {RATE_FROM} ({ips:.2f} clips/s, "
+          f"{2 * ips:.2f} frames/s), "
+          f"host_wait {wait:.2%}, peak {(sv['peak_bytes'] or 0) / 1e9:.2f} GB "
+          f"{stamp}", flush=True)
+    assert rep["fresh"] == rep["mismatched"] == rep["dropped"] == []
+    assert rep["pose"] == pose_npz
+    assert sv["steps"] == VIDEO_STEPS and sr["start_step"] == VIDEO_STEPS
+    assert sr["step"] == VIDEO_RESUME and len(vel) == VIDEO_RESUME
+    assert all(np.isfinite(vel)) and all(v > 0 for v in vel_num)
+    assert not changed and backbone, changed
+    assert vel_moved > 0, "the velocity channel did not train"
+    assert not any(lv.values()) and not any(lr_.values()), (lv, lr_)
+
+    # -- (c) the tiny video step: card against the CPU path, f64
+    tcfg = load_config("tiny_video_synthetic")
+    t_anchors = prepare_anchors(tcfg, views, device="cpu")
+    results = []
+    for device in (torch.device("cpu"), dev):
+        run = train.build_training(tcfg, *t_anchors, device,
+                                   param_dtype=torch.float64)
+        perturb_(run.model, seed=5)
+        loader = VideoTrainLoader(views, tcfg, seed=tcfg.rng_seed,
+                                  prefetch=1)
+        batches = device_prefetch(train.host_tensors(
+            loader, pin=device.type == "cuda"), device)
+        try:
+            stats = [{k: float(v) for k, v in run.step(
+                run.state, train.raw_batch(next(batches)[1])).items()}
+                for _ in range(2)]
+        finally:
+            batches.close()
+            loader.close()
+        results.append((stats, {k: v.cpu() for k, v in
+                                run.model.state_dict().items()}))
+    (s_c, p_c), (s_g, p_g) = results
+    err = max(((p_g[k] - v).abs().max() / v.abs().max()).item()
+              for k, v in p_c.items()
+              if v.is_floating_point() and v.abs().max() > 0)
+    stat_err = max(abs(a[k] - b[k]) / (abs(b[k]) + 1e-6)
+                   for a, b in zip(s_g, s_c) for k in b)
+    print(f"video train (c): two tiny_video_synthetic steps (train_torch's "
+          f"build_training, VideoTrainLoader batches of the tree, f64, "
+          f"BatchNorm perturbed, backbone frozen) card vs CPU path: "
+          f"parameters max |err| / max |ref| {err:.3e} (tol "
+          f"{VIDEO_TRAIN_REL:g}), stats max rel {stat_err:.3e}; vel "
+          f"{s_g[-1]['vel']:.4f} over {int(s_g[-1]['vel_num'])} rows",
+          flush=True)
+    assert err <= VIDEO_TRAIN_REL, "the video step differs on the card"
+    assert s_c[0]["vel_num"] > 0
+
+    # -- (d) the fused-track loss and its pose gradient, T 128, M 64, F 4
+    p2 = np.concatenate([kitti_p2(), [[0.0, 0.0, 0.0, 1.0]]])
+    vcfg = VideoConfig()
+    meas, valid, poses = make_synthetic_track_clip(
+        15, n_frames=4, m=vcfg.max_measurements, n_objects=24,
+        kill_frame=-1, p2=p2)
+    rs = np.random.default_rng(15)
+    gts = meas[-1, :24, 6:9] + rs.normal(0, 0.3, (24, 3))
+    poses = poses + rs.normal(0, 0.05, poses.shape)
+    host = [torch.from_numpy(a) for a in (poses, meas, valid, gts,
+                                          np.ones(24, bool), p2)]
+
+    def fwd_bwd(args):
+        pose = args[0].detach().requires_grad_()
+        loss, n = fused_track_loss(pose, *args[1:], vcfg)
+        loss.backward()
+        return loss.detach(), n, pose.grad
+
+    ref = fwd_bwd(host)
+    args_g = [a.to(dev) for a in host]
+    fwd_bwd(args_g)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fwd_bwd(args_g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    errs = [((g.cpu() - r).abs() / (1 + r.abs())).max().item()
+            for g, r in ((got[0], ref[0]), (got[2], ref[2]))]
+    host_ms = wall_ms(lambda: fwd_bwd(args_g), 3)
+    n_launch = len(trace_kernels(lambda: fwd_bwd(args_g)))
+    print(f"video train (d): fused_track_loss + backward to the poses "
+          f"(T {vcfg.max_tracks}, M {vcfg.max_measurements}, F 4, f64) on "
+          f"the card vs the CPU path, no host sync (sync debug mode error): "
+          f"{int(got[1])} GTs matched ({int(ref[1])} on the CPU), max err "
+          f"loss {errs[0]:.3e}, gradient {errs[1]:.3e} (tol "
+          f"{FUSED_TRACK_TOL:g}); forward + backward host {host_ms:.2f} ms "
+          f"(synchronised) in {n_launch} kernel launches {stamp}", flush=True)
+    assert int(got[1]) == int(ref[1]) > 0 and ref[2].abs().max() > 0
+    assert max(errs) <= FUSED_TRACK_TOL, errs
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2168,8 +2471,9 @@ def main():
     eval_phase(dev, flush, stamp)
     train_entry_phase(dev, stamp)
     video = video_phase(dev, flush, stamp)
+    video_train_phase(dev, stamp)
 
-    # -- 15. results ----------------------------------------------------------
+    # -- 16. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,

@@ -9,11 +9,13 @@
   optional mmap cache of decoded arrays.
 * ``TrainLoader`` samples weighted batches of one image size, decodes them
   in a thread pool and prefetches them from a worker thread.
+* ``ClipRecordView`` gives a tracking record the still-image record's
+  interface (``.gts`` the current frame's labels, velocities included), so
+  ``prepare_anchors`` and the loaders take a tracking imdb;
+  ``VideoTrainLoader`` is ``TrainLoader`` over clips of ``video_count``
+  frames, oldest first.
 * ``device_prefetch`` moves host batches to the device from a worker thread
   on a side CUDA stream.
-
-The video loader (``VideoTrainLoader``, ``ClipRecordView``) waits for the
-video slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -406,6 +408,10 @@ class TrainLoader:
         img_arr = np.zeros((cfg.batch_size, h0, w0, 3), np.uint8)
         for bi, im in enumerate(images):
             img_arr[bi, :im.shape[0], :im.shape[1]] = im
+        return self._finish_batch(img_arr, gts_list, p2s, scales, mirrors)
+
+    def _finish_batch(self, img_arr, gts_list, p2s, scales, mirrors):
+        cfg = self.cfg
         gt = pad_gt_batch(gts_list, p2s, scales, list(cfg.lbls),
                           list(cfg.ilbls), cfg.min_gt_vis, cfg.min_gt_h,
                           max_gts=cfg.max_gts, max_igns=cfg.max_igns,
@@ -463,6 +469,101 @@ class TrainLoader:
 
     def __iter__(self):
         return self
+
+
+class ClipRecordView:
+    """A ``data/tracking.py::TrackingRecord`` with the still-image record's
+    interface: ``.gts`` is the current frame's labels (``gts_frames[0]``,
+    with the velocity column where the raw sequence has tracks), so
+    ``prepare_anchors``, ``balance_samples`` and the loaders take a
+    tracking imdb.  The current frame is index 0 of ``gts_frames`` and of
+    ``image_paths`` (then prev 1, prev 2, ...), where a loaded clip puts it
+    last."""
+
+    def __init__(self, rec):
+        self.rec = rec
+        self.id = rec.id
+        self.gts = rec.gts_frames[0] if rec.gts_frames else None
+        self.scale = 1.0
+        self.p2 = rec.p2
+        self.p2_inv = rec.p2_inv
+        self.im_h = rec.im_h
+        self.im_w = rec.im_w
+        self.image_paths = rec.image_paths
+
+
+class VideoTrainLoader(TrainLoader):
+    """``TrainLoader`` over clips, for the video model's training.
+
+    The draws, the mirror and the labels are ``TrainLoader``'s, on the
+    current frame (the loss supervises it alone); ``images_u8`` is
+    [B, F, H0, W0, 3], F = ``n_frames`` (``cfg.video_count``), ordered
+    oldest to current and zero-padded to the batch's largest frame; a
+    mirrored sample flips every frame of its clip (``fuse_preprocess(...,
+    video=True)``).  ``imdb`` is a tracking imdb; its records are wrapped in
+    ``ClipRecordView`` unless they already have ``.gts``.
+
+    One decode task a clip (its frames read in turn); the labels are
+    sampled afterwards in index order, so the draws are the JAX loader's
+    for a seed.  The decode cache's key is a frame's file stem, so a
+    current frame ("000001") and a history frame ("000001_01") are
+    distinct entries.
+    """
+
+    def __init__(self, imdb, cfg, seed=0, prefetch=4, n_frames=None,
+                 decode_workers=8, raw_cache_dir=None):
+        self.n_frames = n_frames or max(1, cfg.video_count)
+        views = [r if hasattr(r, "gts") else ClipRecordView(r) for r in imdb]
+        super().__init__(views, cfg, seed=seed, prefetch=prefetch,
+                         decode_workers=decode_workers,
+                         raw_cache_dir=raw_cache_dir)
+
+    def _make_batch(self):
+        cfg = self.cfg
+        idx = self._sample_indices()
+        clips = list(self._pool.map(
+            lambda i: np.stack(self._load_clip(self.imdb[i])), idx))
+        gts_list, p2s, scales, mirrors = [], [], [], []
+        for i, clip in zip(idx, clips):
+            rec = self.imdb[i]
+            gts, scale, mirror = self._sample_labels(rec, clip[-1])
+            gts_list.append(gts)
+            p2s.append(rec.p2)
+            scales.append(scale)
+            mirrors.append(mirror)
+        h0 = max(c.shape[1] for c in clips)
+        w0 = max(c.shape[2] for c in clips)
+        img_arr = np.zeros((cfg.batch_size, self.n_frames, h0, w0, 3),
+                           np.uint8)
+        for bi, c in enumerate(clips):
+            img_arr[bi, :, :c.shape[1], :c.shape[2]] = c
+        return self._finish_batch(img_arr, gts_list, p2s, scales, mirrors)
+
+    def _load_frame(self, path):
+        return load_image_cached(
+            path, os.path.splitext(os.path.basename(path))[0],
+            self._cache_dir)
+
+    def _load_clip(self, rec):
+        """``n_frames`` frames, oldest first.  The current frame must exist;
+        a history frame that is missing, unreadable or of another size
+        (a sequence's start has no prev 2), and one past a short
+        ``image_paths``, is the nearest newer frame again: no apparent
+        motion, as the -inf no-velocity label says."""
+        paths = rec.image_paths[:self.n_frames]    # current, prev 1, ...
+        cur = self._load_frame(paths[0])
+        full = [cur]
+        for k in range(1, self.n_frames):
+            img = None
+            if k < len(paths):
+                try:
+                    img = self._load_frame(paths[k])
+                except (FileNotFoundError, OSError):
+                    img = None
+                if img is not None and img.shape != cur.shape:
+                    img = None
+            full.append(img if img is not None else full[k - 1])
+        return full[::-1]
 
 
 def device_prefetch(host_iter, device, depth=2):

@@ -17,12 +17,14 @@ lower index first among equal keys) and each ``argsort(stable=True)`` a
 stable ascending sort.  The loss
 runs in f32; call it outside ``torch.autocast``.
 
-The velocity term (``has_vel``, the video stage's training) is not ported
-and raises ``NotImplementedError``; every other branch of the JAX function
-is: the ``_un`` model's uncertainty in the acceptance probability's place,
-the focal reweighting, the GT-IoU3D weighting of the 3D terms, the
-acceptance ``classify``/``rank``/``regress``/``likelihood`` modes and the
-after-NMS ``rank``/``classify``/``regress`` modes.
+Every branch of the JAX function is ported: the ``_un`` model's
+uncertainty in the acceptance probability's place, the focal reweighting,
+the GT-IoU3D weighting of the 3D terms, the acceptance
+``classify``/``rank``/``regress``/``likelihood`` modes, the after-NMS
+``rank``/``classify``/``regress`` modes and the video stage's velocity term
+(``has_vel``).  Under ``has_vel`` the stats carry two entries JAX's do not:
+``vel``, the velocity term as added to the 3D loss, and ``vel_num``, the
+foreground rows with a finite velocity target.
 """
 
 from __future__ import annotations
@@ -238,18 +240,17 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
     """Total loss + stats for one batch.
 
     ``outputs``: 'cls' [B, R, C], 'prob' [B, R, C], 'bbox_2d' [B, R, 4],
-    'bbox_3d' [B, R, 10], optional 'accept_prob' [B, R], 'accept_cls'
-    [B, R, bins-1] and 'uncertainty' [B, R] (read under ``has_un`` when
-    there is no 'accept_prob'), all f32.  ``rois`` [R, 5], ``rois_3d`` [R, P],
-    ``bbox_means`` / ``bbox_stds`` [13], all on the outputs' device.
+    'bbox_3d' [B, R, 10] ([B, R, 11] under ``has_vel``), optional
+    'accept_prob' [B, R], 'accept_cls' [B, R, bins-1] and 'uncertainty'
+    [B, R] (read under ``has_un`` when there is no 'accept_prob'), all f32.
+    ``rois`` [R, 5], ``rois_3d`` [R, P] (P = 8 under ``has_vel``: the
+    velocity prior last), ``bbox_means`` / ``bbox_stds`` [13] ([14] under
+    ``has_vel``), all on the outputs' device; ``gts_3d`` carries the
+    velocity in column 16 under ``has_vel`` (-inf where a track has none).
 
     Returns ``(loss, stats, new_un_state)``: ``stats`` maps each term's name
     to a 0-dim tensor (nothing is read back to the host).
     """
-    if cfg.has_vel:
-        raise NotImplementedError(
-            "rpn_3d_loss: has_vel (the video stage's velocity term) is not "
-            "ported to groomed_nms_torch (ROADMAP.md, queue 1, item 11)")
     cls, prob = outputs["cls"], outputs["prob"]
     bbox_2d, bbox_3d = outputs["bbox_2d"], outputs["bbox_3d"]
     accept_prob = outputs.get("accept_prob")
@@ -269,11 +270,12 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         batch.gt_valid, batch.ign_2d, batch.ign_valid,
         fg_thresh=cfg.fg_thresh, ign_thresh=cfg.ign_thresh,
         bg_thresh_lo=cfg.bg_thresh_lo, bg_thresh_hi=cfg.bg_thresh_hi,
-        best_thresh=cfg.best_thresh, decomp_alpha=cfg.decomp_alpha)
+        best_thresh=cfg.best_thresh, decomp_alpha=cfg.decomp_alpha,
+        has_vel=cfg.has_vel)
     fg, bg = tgt.fg_mask, tgt.bg_mask
     label_int = torch.where(fg, tgt.labels.long(), 0)
     t2d_n = (tgt.transforms_2d - means[:4]) / stds[:4]
-    n3d = 9 if cfg.decomp_alpha else 7
+    n3d = (9 if cfg.decomp_alpha else 7) + (1 if cfg.has_vel else 0)
     t3d_n = (tgt.transforms_3d[..., :n3d] - means[4:4 + n3d]) / stds[4:4 + n3d]
 
     # -- fg/bg sampling with hard negatives -------------------------------
@@ -530,10 +532,23 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             terms.append(_smooth_l1(bbox_3d[..., 6], t3d_n[..., 6]))
             l_axis = l_head = None
 
+        l_vel = vel_ok = None
+        if cfg.has_vel:
+            # the target is -inf where a track has no velocity: the smooth
+            # L1 takes a sanitised target and the term is averaged over the
+            # rows with a finite one, kept out of `terms` so that no
+            # non-finite value meets a differentiable tensor
+            vel_tar = t3d_n[..., 9]
+            vel_ok = fg_sel & torch.isfinite(vel_tar)
+            l_vel = _smooth_l1(bbox_3d[..., 10],
+                               torch.where(vel_ok, vel_tar, 0.0))
+
         if cfg.weigh_3D_regression_loss_by_gt_iou3d:
             terms = [t * accept_tar for t in terms]
             if l_axis is not None:
                 l_axis, l_head = l_axis * accept_tar, l_head * accept_tar
+            if l_vel is not None:
+                l_vel = l_vel * accept_tar
 
         # self-balancing lambda from the un-weighted 3D loss magnitude
         dynamic = cfg.bbox_un_dynamic and accept_prob is not None
@@ -558,9 +573,15 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             terms = [t * accept_prob for t in terms]
             if l_axis is not None:
                 l_axis, l_head = l_axis * accept_prob, l_head * accept_prob
+            if l_vel is not None:
+                l_vel = l_vel * accept_prob
             stats["conf"] = _masked_mean(accept_prob.detach(), fg_sel)
 
         loss_3d = sum(_masked_mean(t, fg_sel) for t in terms)
+        if l_vel is not None:
+            stats["vel"] = _masked_mean(l_vel, vel_ok)
+            stats["vel_num"] = vel_ok.sum().float()
+            loss_3d = loss_3d + stats["vel"]
         if l_axis is not None:
             loss_3d = loss_3d + (_masked_mean(l_axis, fg_sel) +
                                  _masked_mean(l_head, fg_sel)) \

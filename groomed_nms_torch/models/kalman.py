@@ -279,7 +279,8 @@ class PoseNet(nn.Module):
     and confidence heads, a softmax over positions, the weighted sum.
 
     It runs in f32 with autocast off, as the flax module (dtype f32) does
-    inside a bf16 model."""
+    inside a bf16 model, and with its parameters cast to f32 in an f64
+    model, as flax casts them to the module's dtype."""
 
     def __init__(self, in_features, features=512):
         super().__init__()
@@ -289,8 +290,11 @@ class PoseNet(nn.Module):
 
     def forward(self, feats_pair):
         """feats_pair [N, 2C, H, W] -> poses [N, 6] f32."""
+        def conv(m, x):
+            return m._conv_forward(x, m.weight.float(), m.bias.float())
+
         with torch.autocast(feats_pair.device.type, enabled=False):
-            h = F.relu(self.pose_feats(feats_pair.float()))
+            h = F.relu(conv(self.pose_feats, feats_pair.float()))
             n = h.shape[0]
-            attn = torch.softmax(self.conf(h).reshape(n, 1, -1), dim=-1)
-            return (attn * self.pose(h).reshape(n, 6, -1)).sum(-1)
+            attn = torch.softmax(conv(self.conf, h).reshape(n, 1, -1), dim=-1)
+            return (attn * conv(self.pose, h).reshape(n, 6, -1)).sum(-1)

@@ -75,7 +75,9 @@ def latest_checkpoint(output_dir):
     return steps[-1] if steps else None
 
 
-def _load(output_dir, step):
+def read_checkpoint(output_dir, step=None):
+    """The payload of snapshot ``step`` (None: the latest) under
+    ``output_dir``, on the CPU; ``FileNotFoundError`` when there is none."""
     if step is None:
         step = latest_checkpoint(output_dir)
         if step is None:
@@ -137,7 +139,7 @@ def restore_checkpoint(output_dir, model, optimizer=None, step=None,
     """Load snapshot ``step`` (None: the latest) into ``model`` (see
     ``load_weights``) and, when ``restore_optimizer`` and the file holds
     one that fits, into ``optimizer``.  Returns the step."""
-    payload = _load(output_dir, step)
+    payload = read_checkpoint(output_dir, step)
     load_weights(model, payload["model"])
     if restore_optimizer and optimizer is not None:
         _load_optimizer(optimizer, payload["optimizer"], output_dir)
@@ -150,7 +152,7 @@ def restore_train_state(output_dir, state, step=None, restore_optimizer=True):
     the self-balancing lambda and the step.  Returns ``load_weights``'
     report with "step" and "optimizer" ("restored", "fresh", "absent" or
     "skipped") added."""
-    payload = _load(output_dir, step)
+    payload = read_checkpoint(output_dir, step)
     report = load_weights(state.model, payload["model"])
     report["optimizer"] = "skipped"
     if restore_optimizer and state.optimizer is not None:

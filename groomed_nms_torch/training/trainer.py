@@ -15,7 +15,9 @@
 * ``make_train_step``: forward (BatchNorm in train mode unless every
   statistic is frozen; frozen statistics kept through the step; bf16
   autocast when asked), ``rpn_3d_loss`` in f32, backward, optimizer step.
-* ``fuse_preprocess``: uint8 frames + mirror flags -> the step.
+  ``make_video_train_step`` is the same step for ``VideoRPN3D`` on clips,
+  the loss on each clip's current frame.
+* ``fuse_preprocess``: uint8 frames (or clips) + mirror flags -> the step.
 """
 
 from __future__ import annotations
@@ -204,6 +206,54 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
     ``running_mean`` / ``running_var`` buffers, keeps those unchanged
     through a train-mode step while the rest update.
     """
+    def extract(out, batch):
+        return {"cls": out.cls, "prob": out.prob, "bbox_2d": out.bbox_2d,
+                "bbox_3d": out.bbox_3d, "accept_prob": out.accept_prob,
+                "accept_cls": out.accept_cls,
+                "uncertainty": out.uncertainty}
+
+    return _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds,
+                      compute_dtype, on_stage, train_bn, frozen_stats,
+                      extract)
+
+
+def make_video_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
+                          bbox_stds, compute_dtype=None, on_stage=None,
+                          train_bn=True, frozen_stats=()):
+    """``make_train_step`` for ``models/video.py::VideoRPN3D``.
+
+    ``batch['images']`` is a clip [B, F, 3, H, W], frame F-1 the current
+    one; the ``GTBatch`` fields label the current frame (``gts_3d`` with the
+    velocity column 16 for the ``has_vel`` term).  The model runs on the
+    B*F frames at once, so BatchNorm's batch statistics are over all of
+    them; the loss reads each clip's current frame only, as JAX's
+    ``make_video_train_step`` does (the pose branch trains in
+    ``scripts/train_pose_torch.py``).
+    """
+    def extract(out, batch):
+        b, f = batch["images"].shape[:2]
+
+        def last_frame(x):
+            return None if x is None else x.unflatten(0, (b, f))[:, -1]
+
+        fo = out.frame_outputs                            # leading B*F
+        return {"cls": last_frame(fo.cls), "prob": last_frame(fo.prob),
+                "bbox_2d": last_frame(fo.bbox_2d),
+                "bbox_3d": last_frame(fo.bbox_3d),
+                "accept_prob": last_frame(fo.accept_prob),
+                "accept_cls": last_frame(fo.accept_cls),
+                "uncertainty": last_frame(fo.uncertainty)}
+
+    return _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds,
+                      compute_dtype, on_stage, train_bn, frozen_stats,
+                      extract)
+
+
+def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
+               on_stage, train_bn, frozen_stats, extract):
+    """The step body ``make_train_step`` and ``make_video_train_step``
+    share; ``extract(out, batch)`` maps the model's output to the loss's
+    outputs dict."""
     mark = on_stage if on_stage is not None else (lambda stage: None)
     frozen_stats = tuple(frozen_stats)
 
@@ -224,13 +274,9 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
             with torch.no_grad():
                 torch._foreach_copy_(pinned, saved)
         mark("forward")
-        outputs = {"cls": out.cls, "prob": out.prob, "bbox_2d": out.bbox_2d,
-                   "bbox_3d": out.bbox_3d, "accept_prob": out.accept_prob,
-                   "accept_cls": out.accept_cls,
-                   "uncertainty": out.uncertainty}
         gt = GTBatch(*(batch[name] for name in GTBatch._fields))
         loss, stats, state.un_state = rpn_3d_loss(
-            outputs, rois, rois_3d, gt, bbox_means, bbox_stds,
+            extract(out, batch), rois, rois_3d, gt, bbox_means, bbox_stds,
             state.un_state, loss_cfg)
         mark("loss")
         state.optimizer.zero_grad()
@@ -245,13 +291,18 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
 
 
 def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
-                    distort_prob=0.0, out_dtype=None):
+                    distort_prob=0.0, out_dtype=None, video=False):
     """Fold the device-side preprocess into the step: the returned
     ``fused(state, raw)`` takes the loader's batch, ``{'images_u8': [B, H0,
     W0, 3] uint8, 'mirror': [B] bool, **GTBatch fields}``, resizes, crops or
     pads, flips and normalises the frames (in f32, then cast to
     ``out_dtype`` when given), and runs ``step_fn``.  ``image_means`` /
-    ``image_stds`` are 3-vectors on the frames' device.  Photometric jitter
+    ``image_stds`` are 3-vectors on the frames' device.
+
+    With ``video`` the frames are clips [B, F, H0, W0, 3]
+    (``VideoTrainLoader``): preprocessed as B*F frames with each sample's
+    mirror flag repeated for its F frames (a mirrored sample flips its
+    whole clip), then shaped [B, F, 3, H, W].  Photometric jitter
     (``distort_prob > 0``) is not ported.
     """
     if distort_prob > 0:
@@ -260,10 +311,15 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
             "groomed_nms_torch (ROADMAP.md, queue 1)")
 
     def fused(state, raw):
-        images = preprocess_images(raw["images_u8"], raw["mirror"],
-                                   image_means, image_stds,
+        u8, mirror = raw["images_u8"], raw["mirror"]
+        if video:
+            b, f = u8.shape[:2]
+            u8, mirror = u8.flatten(0, 1), mirror.repeat_interleave(f)
+        images = preprocess_images(u8, mirror, image_means, image_stds,
                                    target_h=target_h, crop_w=crop_w,
                                    out_dtype=out_dtype)
+        if video:
+            images = images.unflatten(0, (b, f))
         gt = {k: v for k, v in raw.items() if k not in ("images_u8", "mirror")}
         return step_fn(state, dict(images=images, **gt))
 

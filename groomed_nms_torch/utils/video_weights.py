@@ -3,7 +3,9 @@
 The port's twins of ``groomed_nms_tpu/utils/torch_weights.py``'s
 ``assemble_video_variables``, ``load_video_variables`` and
 ``widen_fused_head_for_velocity``, over the port's checkpoint format
-(``training/checkpoint.py``):
+(``training/checkpoint.py``), and ``pose_npz_arrays``, the pose branch in
+the npz layout ``scripts/train_pose.py`` writes.  ``load_video_variables``'
+rule:
 
 * a ``kalman``-stage checkpoint under the run's directory restores the
   whole model;
@@ -27,8 +29,9 @@ import numpy as np
 import torch
 
 from ..models.rpn_3d import N_BOX2D, N_BOX3D, RPN3D
-from ..training.checkpoint import latest_checkpoint, restore_checkpoint
-from .weights import from_flax
+from ..training.checkpoint import (latest_checkpoint, load_weights,
+                                   read_checkpoint, restore_checkpoint)
+from .weights import flax_names, from_flax
 
 
 def widen_fused_head_for_velocity(state_dict, num_anchors, num_classes):
@@ -63,6 +66,36 @@ def load_pose_npz(pose_net, path):
     return sorted(sd)
 
 
+def pose_npz_arrays(pose_net):
+    """``pose_net``'s parameters as ``{flax path: numpy array}``
+    (``pose_feats/kernel`` HWIO, ``pose_feats/bias``, ...): the npz layout
+    of ``pose_net_params.npz``, which ``load_pose_npz`` and the JAX
+    package's ``assemble_video_variables`` read."""
+    sd = pose_net.state_dict()
+    out = {}
+    for key, (_, path) in flax_names(pose_net).items():
+        v = sd[key].detach().cpu()
+        out[path] = (v.permute(2, 3, 1, 0) if v.dim() == 4 else v).numpy()
+    return out
+
+
+def single_frame_state_dict(rpn_cfg, pretrained):
+    """The ``rpn`` state_dict of a video model with ``rpn_cfg`` from the
+    latest single-frame (``_un``) checkpoint under ``pretrained``, which
+    has no velocity channel: restored into a velocity-free ``RPN3D`` and,
+    when ``rpn_cfg.predict_velocity``, widened by a zero one.  Returns
+    ``(state_dict, step, report)``, ``report`` ``load_weights``' (empty
+    lists when the checkpoint fitted that ``RPN3D`` exactly)."""
+    pre = RPN3D(dataclasses.replace(rpn_cfg, predict_velocity=False))
+    payload = read_checkpoint(pretrained)
+    report = load_weights(pre, payload["model"])
+    sd = pre.state_dict()
+    if rpn_cfg.predict_velocity:
+        sd = widen_fused_head_for_velocity(sd, rpn_cfg.num_anchors,
+                                           rpn_cfg.num_classes)
+    return sd, payload["step"], report
+
+
 def assemble_video_variables(model, rpn_state_dict=None, pose_npz=None):
     """Fill ``model`` (a ``VideoRPN3D``) from a single-frame RPN
     ``state_dict`` and the pose branch's npz, each when given; what is not
@@ -94,15 +127,7 @@ def load_video_variables(model, cfg, out_dir, restore=None, log=None):
                      out_dir, step)
         elif getattr(cfg, "pretrained", None) and \
                 latest_checkpoint(cfg.pretrained) is not None:
-            # the single-frame `_un` checkpoint has no velocity channel:
-            # restore into a velocity-free head and widen it
-            pre = RPN3D(dataclasses.replace(rpn_cfg, predict_velocity=False))
-            step = restore_checkpoint(cfg.pretrained, pre,
-                                      restore_optimizer=False)
-            sd = pre.state_dict()
-            if rpn_cfg.predict_velocity:
-                sd = widen_fused_head_for_velocity(sd, rpn_cfg.num_anchors,
-                                                   rpn_cfg.num_classes)
+            sd, step, _ = single_frame_state_dict(rpn_cfg, cfg.pretrained)
             log.info("single-frame weights warm-started from %s (iter %d)",
                      cfg.pretrained, step)
         else:

@@ -5,9 +5,10 @@ Usage:
       [--data-root data] [--output output] [--max-iter N] [--fresh] \
       [--set KEY=VALUE ...] [--cache-images] [--device cuda]
 
-The port's twin of ``scripts/train.py`` for the still-image models
+The port's twin of ``scripts/train.py``, for the still-image models
 (``rpn_3d``, and ``rpn_3d_un``, whose ``RPN3D`` predicts the uncertainty
-channel): build the training imdb, learn the
+channel) and the video stage (``kalman``, ``VideoRPN3D``; see below):
+build the training imdb, learn the
 anchor priors and bbox statistics (``prepare_anchors``, cached as
 ``anchors.npz``; a ``copy_stats`` config reuses its pretrained run's), build
 the model, the optimizer and the freezing, then start from ``--restore N``,
@@ -22,6 +23,19 @@ the time the loop waited for a batch); a checkpoint every
 ``do_test``, by ``test_kitti_3d`` on the validation split into
 ``results/results_<iter>/`` and the C++ evaluator.  ``conf.json``,
 ``train.log`` and ``metrics.csv`` go to ``<output>/<name>/``.
+
+The video stage (``kitti_3d_full``): the tracking imdb with per-object
+velocities, each record seen through ``ClipRecordView``; anchors and
+statistics with the velocity column (the ``_un`` run's lack it, so
+``copy_stats`` falls back to learning them); ``VideoRPN3D`` frozen by flax
+path (``freeze_whitelist=("backbone",)`` freezes ``rpn/backbone/...``);
+the warm start fills ``rpn`` from the ``_un`` checkpoint of
+``cfg.pretrained``, its head widened by a zero velocity channel, and
+``pose_net`` from ``<output>/<name>_pose/pose_net_params.npz``
+(``scripts/train_pose_torch.py``), else from ``cfg.pretrained``'s; then
+``VideoTrainLoader`` -> ``device_prefetch`` -> the video step, whose loss
+reads each clip's current frame.  Its snapshot evaluation is skipped:
+``scripts/test_kalman_torch.py`` evaluates the video model.
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises when
 CUDA is absent.  ``main(argv)`` returns a summary dict (steps, times, the
@@ -87,6 +101,7 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
     from groomed_nms_torch.anchors import locate_anchors
     from groomed_nms_torch.losses.rpn_3d import UncertaintyState
     from groomed_nms_torch.models.rpn_3d import RPN3D
+    from groomed_nms_torch.models.video import VideoConfig, VideoRPN3D
     from groomed_nms_torch.training.freeze import (all_stats_frozen,
                                                    apply_freeze,
                                                    build_freeze_labels,
@@ -95,12 +110,15 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
     from groomed_nms_torch.training.trainer import (TrainState,
                                                     build_optimizer,
                                                     fuse_preprocess,
-                                                    make_train_step)
+                                                    make_train_step,
+                                                    make_video_train_step)
     from groomed_nms_torch.utils.weights import init_weights
 
     device = torch.device(device)
     param_dtype = param_dtype or torch.float32
-    model = RPN3D(cfg.rpn_config(anchors.shape[0]))
+    video = cfg.model == "kalman"
+    rpn_cfg = cfg.rpn_config(anchors.shape[0])
+    model = VideoRPN3D(VideoConfig(rpn=rpn_cfg)) if video else RPN3D(rpn_cfg)
     init_weights(model, torch.Generator().manual_seed(cfg.rng_seed))
     model = model.to(device, dtype=param_dtype,
                      memory_format=torch.channels_last)
@@ -135,16 +153,17 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
 
     compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else None
-    step = make_train_step(cfg.loss_config(), dev(rois), dev(rois_3d),
-                           dev(means), dev(stds), compute_dtype,
-                           train_bn=train_bn, frozen_stats=frozen_stats)
+    make_step = make_video_train_step if video else make_train_step
+    step = make_step(cfg.loss_config(), dev(rois), dev(rois_3d), dev(means),
+                     dev(stds), compute_dtype, train_bn=train_bn,
+                     frozen_stats=frozen_stats)
     fused = fuse_preprocess(step, dev(cfg.image_means, torch.float32),
                             dev(cfg.image_stds, torch.float32),
                             target_h=cfg.crop_size[0],
                             crop_w=cfg.crop_size[1],
                             distort_prob=cfg.distort_prob,
                             out_dtype=None if param_dtype == torch.float32
-                            else param_dtype)
+                            else param_dtype, video=video)
     state = TrainState(model, optimizer, UncertaintyState.init(device))
     return SimpleNamespace(model=model, optimizer=optimizer,
                            schedule=schedule, state=state, step=fused,
@@ -172,6 +191,37 @@ def raw_batch(tensors):
             **dict(zip(GTBatch._fields, gt))}
 
 
+def warm_start_video(model, cfg, out_dir, log):
+    """Fill a ``VideoRPN3D`` from the single-frame (``_un``) run of
+    ``cfg.pretrained`` (its head widened by a zero velocity channel) and
+    its pose branch from the first ``pose_net_params.npz`` of
+    ``<out_dir>_pose/`` and ``cfg.pretrained``, warning when there is none.
+    Returns ``load_weights``' report with "step", "widened" (the tensors
+    with a fresh velocity channel) and "pose" (the npz read, or None)."""
+    from groomed_nms_torch.utils.video_weights import (load_pose_npz,
+                                                       single_frame_state_dict)
+
+    rpn_cfg = model.config.rpn
+    sd, step, report = single_frame_state_dict(rpn_cfg, cfg.pretrained)
+    model.rpn.load_state_dict(sd)
+    candidates = [os.path.join(out_dir + "_pose", "pose_net_params.npz"),
+                  os.path.join(cfg.pretrained, "pose_net_params.npz")]
+    pose = next((p for p in candidates if os.path.exists(p)), None)
+    if pose is None:
+        log.warning("no trained pose branch found (looked in %s); pose_net "
+                    "starts from random init", candidates)
+    else:
+        load_pose_npz(model.pose_net, pose)
+    widened = ["rpn.head.weight", "rpn.head.bias"] \
+        if rpn_cfg.predict_velocity else []
+    log.info("warm-started from %s (iter %d; %d tensors fresh, %d of another "
+             "shape, %d dropped; fresh: the velocity channel of %s); "
+             "pose_net from %s", cfg.pretrained, step, len(report["fresh"]),
+             len(report["mismatched"]), len(report["dropped"]), widened,
+             pose)
+    return dict(report, step=step, widened=widened, pose=pose)
+
+
 def _launches():
     from groomed_nms_torch.ops import kernels
     return {n: getattr(kernels, n).launches for n in KERNELS}
@@ -184,10 +234,13 @@ def main(argv=None):
 
     from groomed_nms_torch.config import apply_overrides, load_config
     from groomed_nms_torch.data.imdb import build_imdb
-    from groomed_nms_torch.data.pipeline import (TrainLoader,
+    from groomed_nms_torch.data.pipeline import (ClipRecordView,
+                                                 TrainLoader,
+                                                 VideoTrainLoader,
                                                  device_prefetch,
                                                  prepare_anchors,
                                                  resolve_stats_dir)
+    from groomed_nms_torch.data.tracking import build_tracking_imdb
     from groomed_nms_torch.eval.tester import test_kitti_3d
     from groomed_nms_torch.training.checkpoint import (latest_checkpoint,
                                                        restore_train_state,
@@ -202,12 +255,7 @@ def main(argv=None):
     cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.max_iter:
         cfg = dataclasses.replace(cfg, max_iter=args.max_iter)
-    if cfg.model == "kalman":
-        raise NotImplementedError(
-            "model='kalman' (the video stage's training: VideoTrainLoader, "
-            "has_vel, the pose and fused-track losses) is not ported to "
-            "groomed_nms_torch (ROADMAP queue 1, item 11); "
-            "scripts/test_kalman_torch.py serves the video model")
+    is_video = cfg.model == "kalman"
 
     out_dir = os.path.join(args.output, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
@@ -221,9 +269,14 @@ def main(argv=None):
     cfg.dump(os.path.join(out_dir, "conf.json"))
 
     root = os.path.join(args.data_root, cfg.dataset_train)
-    imdb = build_imdb(root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
-                      cache_file=os.path.join(out_dir, "imdb.pkl"),
-                      im_ext=cfg.im_ext)
+    if is_video:
+        imdb = [ClipRecordView(r) for r in build_tracking_imdb(
+            root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
+            cache_file=os.path.join(out_dir, "imdb.pkl"), im_ext=cfg.im_ext)]
+    else:
+        imdb = build_imdb(root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
+                          cache_file=os.path.join(out_dir, "imdb.pkl"),
+                          im_ext=cfg.im_ext)
     log.info("imdb: %d images", len(imdb))
 
     stats_dir = resolve_stats_dir(cfg, out_dir)
@@ -255,12 +308,16 @@ def main(argv=None):
                      "--max-iter to extend, or scripts/evaluate_torch.py "
                      "to evaluate)", cfg.max_iter)
     elif cfg.pretrained and latest_checkpoint(cfg.pretrained) is not None:
-        report = restore_train_state(cfg.pretrained, state,
-                                     restore_optimizer=False)
+        if is_video:
+            report = warm_start_video(run.model, cfg, out_dir, log)
+        else:
+            report = restore_train_state(cfg.pretrained, state,
+                                         restore_optimizer=False)
+            log.info("warm-started from %s (%d tensors fresh, %d of another "
+                     "shape, %d dropped)", cfg.pretrained,
+                     len(report["fresh"]), len(report["mismatched"]),
+                     len(report["dropped"]))
         state.step = 0
-        log.info("warm-started from %s (%d tensors fresh, %d of another "
-                 "shape, %d dropped)", cfg.pretrained, len(report["fresh"]),
-                 len(report["mismatched"]), len(report["dropped"]))
     if cuda:
         torch.backends.cudnn.benchmark = True    # one input shape a size
 
@@ -269,6 +326,10 @@ def main(argv=None):
 
     def snapshot_eval(iteration):
         nonlocal val_imdb
+        if is_video:
+            log.info("snapshot eval skipped for the video model; use "
+                     "scripts/test_kalman_torch.py")
+            return None
         if val_imdb is None:
             val_imdb = build_imdb(val_root, "validation",
                                   use_3d_for_2d=cfg.use_3d_for_2d,
@@ -301,8 +362,8 @@ def main(argv=None):
 
     cache_dir = os.path.join(root, "training", ".decoded_cache") \
         if args.cache_images else None
-    loader = TrainLoader(imdb, cfg, seed=cfg.rng_seed,
-                         raw_cache_dir=cache_dir)
+    loader = (VideoTrainLoader if is_video else TrainLoader)(
+        imdb, cfg, seed=cfg.rng_seed, raw_cache_dir=cache_dir)
     tracker = StatTracker(cfg.max_iter, cfg.display, start_iter=start)
     metrics_csv = MetricsCSV(os.path.join(out_dir, "metrics.csv"))
     batches = device_prefetch(host_tensors(loader, pin=cuda), device)

@@ -883,3 +883,114 @@ def test_extract_measurements_on_cuda_matches_cpu(cuda):
     assert torch.equal(keep_g.cpu(), keep_c) and keep_c.sum() > 8
     torch.testing.assert_close(meas_g.cpu()[keep_c], meas_c[keep_c],
                                rtol=1e-5, atol=1e-4)
+
+
+# -- the video stage's training -----------------------------------------------
+
+def test_video_train_step_on_cuda_matches_cpu(cuda, tmp_path):
+    """Two steps of the video stage through ``scripts/train_torch.py``'s
+    ``build_training`` (``tiny_video_synthetic``: the tiny video model with
+    the velocity term, the backbone frozen, BatchNorm perturbed), fed by
+    ``VideoTrainLoader`` and ``device_prefetch`` from a synthetic tracking
+    tree, on the card against the CPU path in f64: the stats at rtol 1e-4
+    (atol 1e-6; the loss runs in f32), each tensor within 1e-4 of its
+    largest magnitude; the frozen backbone bit for bit; no K1-K4 or
+    grouping launch."""
+    import importlib.util
+
+    from groomed_nms_torch.config import load_config
+    from groomed_nms_torch.data.pipeline import (ClipRecordView,
+                                                 VideoTrainLoader,
+                                                 device_prefetch,
+                                                 prepare_anchors)
+    from groomed_nms_torch.data.synthetic import make_synthetic_kitti_video
+    from groomed_nms_torch.data.tracking import build_tracking_imdb
+
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts", "train_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    root = str(tmp_path / "kitti_split1")
+    make_synthetic_kitti_video(root, n_train=6, n_val=1, im_h=96, im_w=320,
+                               seed=5)
+    cfg = load_config("tiny_video_synthetic")
+    imdb = [ClipRecordView(r) for r in build_tracking_imdb(root, "training")]
+    anchors, means, stds = prepare_anchors(cfg, imdb, device="cpu")
+    names = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+             "group_leaders", "dense_block_eval")
+    results = []
+    for device in (torch.device("cpu"), cuda):
+        run = script.build_training(cfg, anchors, means, stds, device,
+                                    param_dtype=torch.float64)
+        _perturb_(run.model, seed=5)
+        before = {k: v.clone() for k, v in run.model.state_dict().items()}
+        counts = {n: getattr(kernels, n).launches for n in names}
+        loader = VideoTrainLoader(imdb, cfg, seed=cfg.rng_seed, prefetch=1)
+        batches = device_prefetch(script.host_tensors(
+            loader, pin=device.type == "cuda"), device)
+        try:
+            stats = [{k: float(v) for k, v in run.step(
+                run.state, script.raw_batch(next(batches)[1])).items()}
+                for _ in range(2)]
+        finally:
+            batches.close()
+            loader.close()
+        assert counts == {n: getattr(kernels, n).launches for n in names}
+        after = {k: v.cpu() for k, v in run.model.state_dict().items()}
+        for k, v in after.items():
+            if k.startswith("rpn.backbone."):
+                assert torch.equal(v, before[k].cpu()), k
+        results.append((stats, after))
+    (s_c, p_c), (s_g, p_g) = results
+    assert s_c[0]["vel_num"] > 0 and np.isfinite(s_c[1]["vel"])
+    for a, b in zip(s_g, s_c):
+        for k in b:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+    for k, ref in p_c.items():
+        if ref.is_floating_point():
+            assert (p_g[k] - ref).abs().max() <= 1e-4 * ref.abs().max(), k
+
+
+def test_fused_track_loss_on_cuda_matches_cpu(cuda):
+    """The fused-track loss and its gradient with respect to the poses on a
+    4-frame synthetic clip (T 24, M 16) in f64: the card against the CPU
+    path within 1e-9 (+ 1e-9 |x|), forward and backward without a host
+    synchronisation (sync debug mode "error")."""
+    from groomed_nms_torch.data.synthetic import (kitti_p2,
+                                                  make_synthetic_track_clip)
+    from groomed_nms_torch.losses.fused_track import fused_track_loss
+    from groomed_nms_torch.models.video import VideoConfig
+
+    p2 = np.concatenate([kitti_p2(), [[0.0, 0.0, 0.0, 1.0]]])
+    meas, valid, poses = make_synthetic_track_clip(
+        5, n_frames=4, m=16, n_objects=9, kill_frame=-1, p2=p2)
+    rs = np.random.default_rng(5)
+    gts = meas[-1, :9, 6:9] + rs.normal(0, 0.3, (9, 3))
+    poses = poses + rs.normal(0, 0.05, poses.shape)
+    cfg = VideoConfig(max_tracks=24)
+    host = [torch.from_numpy(a) for a in (poses, meas, valid, gts,
+                                          np.ones(9, bool), p2)]
+
+    def run(device, sync_check=False):
+        pose, *rest = (a.to(device) for a in host)
+        pose = pose.detach().requires_grad_()
+        if sync_check:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, n = fused_track_loss(pose, *rest, cfg)
+            loss.backward()
+        finally:
+            if sync_check:
+                torch.cuda.set_sync_debug_mode(0)
+        return loss.detach().cpu(), n.cpu(), pose.grad.cpu()
+
+    ref = run("cpu")
+    run(cuda)                                              # warm
+    got = run(cuda, sync_check=True)
+    assert int(got[1]) == int(ref[1]) > 0
+    assert ref[2].abs().max() > 0 and (ref[2][0] == 0).all()
+    for g, r in ((got[0], ref[0]), (got[2], ref[2])):
+        assert ((g - r).abs() <= 1e-9 * (1 + r.abs())).all(), (g, r)

@@ -3,7 +3,8 @@ assignment, the AP loss and ``rpn_3d_loss`` on shared head tensors.
 
 The JAX loss is compiled once per config (value and gradient together); the
 port runs its CPU path, K3 through its plain version.  Every branch of the
-JAX loss is held, ``has_vel`` (which still raises) aside.  Tolerances:
+JAX loss is held, ``has_vel`` included (on GTs with a velocity column,
+some of it -inf).  Tolerances:
 helpers and targets at rtol 1e-5 / atol 1e-5 (the same f32 formulas); every stats
 term at rtol 1e-4, atol 1e-6; gradients with respect to every head tensor
 at rtol 1e-3, atol 1e-5 (sums over the batch in other orders, and the AP
@@ -137,7 +138,9 @@ def test_box_transforms_match_jax(decomp_alpha, has_vel, vel_col):
 # target assignment
 # ---------------------------------------------------------------------------
 
-def _rois():
+def _rois(vel=False):
+    """(rois [R, 5], rois_3d [R, 7]); with ``vel`` an 8th prior column, the
+    anchors' mean velocity."""
     rs = np.random.default_rng(0)
     templates = janchors.generate_anchor_templates([16, 32], [0.5, 1.0, 1.5],
                                                    16)
@@ -146,17 +149,22 @@ def _rois():
         axis=1)
     priors[:, 4] = 30.0                          # the GTs' depth and size
     priors[:, 5:8] += np.array([1.6, 1.5, 3.9], np.float32) - priors[:, 5:8]
+    if vel:
+        priors = np.concatenate(
+            [priors, rs.uniform(0.2, 0.8, (A, 1)).astype(np.float32)], 1)
     rois = janchors.locate_anchors(priors, (FH, FW), 16)
     return rois, priors[rois[:, 4].astype(np.int64), 4:]
 
 
-def _gt_batch(seed, n_gt=(6, 5), ign=(0, 0)):
+def _gt_batch(seed, n_gt=(6, 5), ign=(0, 0), vel=False):
     """numpy GTBatch fields at the tiny image size (64 x 128): ``n_gt`` valid
     GTs and ``ign`` ignore regions per image, axis/head labels random.  Each
     GT sits near an anchor centre with about an anchor's size, so a few
     anchors are foreground for it and GrooMeD-NMS forms groups; the 3D
     centres back-project the 2D centres at depth 30, so predictions near a
-    GT overlap it in 3D too and the after-NMS targets are not empty."""
+    GT overlap it in 3D too and the after-NMS targets are not empty.  With
+    ``vel`` a 17th column holds each GT's velocity: every third valid GT
+    has none (-inf, a track's first frame), the padding rows none either."""
     rs = np.random.default_rng(seed)
     g, i = 7, 2
     gts_2d = np.zeros((B, g, 4), np.float32)
@@ -184,6 +192,13 @@ def _gt_batch(seed, n_gt=(6, 5), ign=(0, 0)):
     p2 = np.tile(np.eye(4, dtype=np.float32)[None], (B, 1, 1))
     p2[:, 0, 0] = p2[:, 1, 1] = 700.0
     p2[:, 0, 2], p2[:, 1, 2] = 64.0, 32.0
+    if vel:
+        v = np.full((B, g, 1), -np.inf, np.float32)
+        for bi in range(B):
+            for gi in range(n_gt[bi]):
+                if gi % 3 != 1:
+                    v[bi, gi] = rs.uniform(0.0, 1.5)
+        gts_3d = np.concatenate([gts_3d, v], -1)
     return dict(gts_2d=gts_2d, gts_3d=gts_3d,
                 gt_labels=rs.integers(1, 4, (B, g)).astype(np.float32),
                 gt_valid=gt_valid, ign_2d=ign_2d, ign_valid=ign_valid, p2=p2,
@@ -288,6 +303,9 @@ def _heads(seed, cfg):
     heads = {"cls": rs.normal(0, 1.5, (B, R, 4)),
              "bbox_2d": rs.normal(0, 0.1, (B, R, 4)),
              "bbox_3d": rs.normal(0, 0.2, (B, R, 10))}
+    if cfg.has_vel:
+        heads["bbox_3d"] = np.concatenate(
+            [heads["bbox_3d"], rs.normal(0, 0.3, (B, R, 1))], -1)
     if cfg.has_un:
         heads["un"] = rs.normal(0, 1.5, (B, R))
     if cfg.predict_acceptance_prob:
@@ -307,7 +325,8 @@ def _outputs(xp, heads, classify):
     b3 = heads["bbox_3d"]
     out = {"cls": heads["cls"], "prob": softmax(heads["cls"], -1),
            "bbox_2d": heads["bbox_2d"],
-           "bbox_3d": cat([b3[..., :8], sigmoid(b3[..., 8:10])], -1)}
+           "bbox_3d": cat([b3[..., :8], sigmoid(b3[..., 8:10]),
+                           b3[..., 10:]], -1)}
     if "accept" in heads:
         if classify:
             out["accept_cls"] = sigmoid(heads["accept"])
@@ -323,12 +342,15 @@ def _run_both(name, overrides, gt_seed=7, n_gt=(6, 5), ign=(1, 0)):
                                **overrides)
     tcfg = dataclasses.replace(load_config(name).loss_config(), **overrides)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    rois, rois_3d = _rois()
-    gt = _gt_batch(gt_seed, n_gt, ign)
+    vel = tcfg.has_vel
+    rois, rois_3d = _rois(vel)
+    gt = _gt_batch(gt_seed, n_gt, ign, vel)
     heads = _heads(11, tcfg)
     classify = tcfg.acceptance_prob_mode == "classify"
-    means = np.zeros(13, np.float32)
-    stds = np.ones(13, np.float32)
+    means = np.zeros(13 + vel, np.float32)
+    stds = np.ones(13 + vel, np.float32)
+    if vel:                        # a velocity statistic that is not 0 / 1
+        means[13], stds[13] = 0.1, 0.7
     un = (np.float32(0.7), np.int32(3))
 
     def jax_loss(h):
@@ -361,9 +383,13 @@ def test_rpn_3d_loss_matches_jax(name, overrides):
     _assert_matches(*_run_both(name, overrides))
 
 
+# the port's own stats under has_vel (JAX reports the term inside bbox_3d)
+VEL_STATS = {"vel", "vel_num"}
+
+
 def _assert_matches(ref, got):
     (jstats, jun, jgrads), (tstats, tun, tgrads) = ref, got
-    assert set(tstats) == set(jstats)
+    assert set(tstats) - VEL_STATS == set(jstats)
     assert float(jstats["fg_num"]) > 0
     for k in jstats:
         _close(tstats[k], jstats[k], rtol=STATS_RTOL, atol=STATS_ATOL,
@@ -399,15 +425,10 @@ def test_rpn_3d_loss_image_without_gt_has_finite_gradients():
     {"use_nms_in_loss": True, "after_nms_loss_mode": "regress"},
 ])
 def test_unported_branches_raise(overrides):
-    """The branches the port once refused: ``has_vel`` (the video stage's
-    training) still raises; every other one now matches JAX's value and
+    """The branches the port once refused now match JAX's value and
     gradients, on the still-image model without acceptance branch (has_un,
-    the GT-IoU3D weighting) or on the groomed model (the rest)."""
-    if "has_vel" in overrides:
-        cfg = tloss.LossConfig(**overrides)
-        with pytest.raises(NotImplementedError, match="has_vel"):
-            tloss.rpn_3d_loss({}, None, None, None, None, None, None, cfg)
-        return
+    the GT-IoU3D weighting) or on the groomed model (the rest, has_vel
+    among them: velocity targets finite, -inf and on background rows)."""
     base = "kitti_3d_warmup" if {"has_un", "weigh_3D_regression_loss_by_"
                                  "gt_iou3d"} & set(overrides) else \
         "groomed_nms"
@@ -415,3 +436,13 @@ def test_unported_branches_raise(overrides):
     for k in ("un", "bbox_prob", "after_nms"):
         assert (k in got[0]) == (k in ref[0]), k
     _assert_matches(ref, got)
+    if "has_vel" in overrides:
+        assert_vel_stats(got[0])
+
+
+def assert_vel_stats(stats):
+    """The velocity term finite over some rows with a finite target, and
+    fewer than every foreground row (some targets are -inf)."""
+    assert VEL_STATS <= set(stats)
+    assert torch.isfinite(stats["vel"]) and stats["vel"] > 0
+    assert 0 < stats["vel_num"] < stats["fg_num"]

@@ -611,16 +611,16 @@ def test_train_torch_script_on_the_cpu(tree, tmp_path):
 
 
 def test_train_torch_refusals(tree, tmp_path):
-    """No CUDA device without --device cpu, and the video model's training,
-    not ported."""
+    """No CUDA device without --device cpu, and photometric jitter
+    (``distort_prob > 0``), not ported."""
     script = _train_torch()
     base = ["--data-root", tree, "--output", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             script.main(["--config", "tiny_synthetic", *base])
-    with pytest.raises(NotImplementedError, match="kalman"):
-        script.main(["--config", "tiny_video_synthetic", "--device", "cpu",
-                     *base])
+    with pytest.raises(NotImplementedError, match="distort_prob"):
+        script.main(["--config", "tiny_synthetic", "--device", "cpu",
+                     "--set", "distort_prob=0.5", *base])
 
 
 UN_STAGE = ("name='tiny_un'", "model='rpn_3d_un'", "has_un=True",
