@@ -154,9 +154,31 @@ Phases, in order; any failure raises and exits non-zero:
                 with respect to the poses at T 128, M 64, F 4 in f64, card
                 against the CPU path under sync debug mode "error", its host
                 ms and launches;
- 16. the kernels JSON line (K1 and K2 with a "video" entry each: the check
-     at the video path's shape, its times and bound, and its launches),
-     then the last line: {"ok": true, "device": {...}}.
+ 16. export -- the serving artifacts (groomed_nms_torch/export.py on
+                torch.export): (a) the flagship (rpn3d, bf16, batch 8,
+                512x1760 from uint8 375x1242) through build_serving_fn ->
+                export_serving -> bytes -> load_serving: the loaded artifact
+                against the live closure (valid identical, dets within
+                ARTIFACT_TOL of 1 + |x|), K1 and K2 once a batch through it,
+                the export and load seconds, the artifact's MB, img/s
+                through the artifact beside make_infer's (10 batches after
+                warm-up); (b) the same with GrooMeD-NMS: K1, K3 and the
+                grouping once a batch, K2 never; (c) the video artifact of
+                kitti_3d_full (T 128, M 64, F 4): at full width in f32 the
+                graph's size, export seconds, MB, one K1 and one K2 launch a
+                clip and the loaded artifact against the live closure
+                reported; at 128x416 in f64 masks and ids identical and
+                numbers within TRACK_TOL of 1 + |x|; (d)
+                scripts/serve_torch.py's main() over 16 PNG frames of phase
+                12's tree in a directory holding only the artifact, its
+                json, the images and the calibs: one txt a frame, the
+                375x1242 frames' rows (r = 1) equal to make_infer's on the
+                same planes by phase 12's rule;
+ 17. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+     at the video path's shape, its times and bound, and its launches; K1,
+     K2, K3 and the grouping with an "export" entry: their launches through
+     the detection artifacts of phase 16, K1's and K2's through one video
+     clip), then the last line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
 run; every error is printed before it is checked.
@@ -2155,6 +2177,265 @@ def video_train_phase(dev, stamp):
     assert max(errs) <= FUSED_TRACK_TOL, errs
 
 
+# the serving artifact (phase 16): the flagship's serving program and the
+# video model's clip program staged out with torch.export, saved to bytes,
+# loaded back and run on the card.  The loaded artifact runs the same ops as
+# the live closure on the same card, so the detection rows are held to
+# 1e-5 + 1e-5 |x| with valid masks identical, and the video program in f64
+# (the tracker's discrete points) to the tracker's rule; the served rows of
+# scripts/serve_torch.py against make_infer's on the same planes at phase
+# 12's rule
+SERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_serve")
+ARTIFACT_TOL = 1e-5
+SERVE_FRAMES = 16                     # of phase 12's tree, both sizes
+SERVING_KERNELS = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+                   "group_leaders")
+
+
+def count_launches(fn, names=SERVING_KERNELS):
+    """(fn's result, the launches of each kernel while it ran)."""
+    for n in names:
+        getattr(kernels, n).launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: getattr(kernels, n).launches for n in names}
+
+
+def video_serving(vcfg, dtype, crop_hw, seed=8):
+    """A perturbed kitti_3d_full VideoRPN3D on the card in ``dtype`` and
+    its serving closure (flagship priors with a velocity column, unit
+    statistics, pose statistics of 0.1)."""
+    from groomed_nms_torch.anchors import locate_anchors
+    from groomed_nms_torch.export import build_video_serving_fn
+    from groomed_nms_torch.flagship import flagship_priors
+    from groomed_nms_torch.models.video import VideoRPN3D
+
+    model = VideoRPN3D(vcfg)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    perturb_(model, seed=seed)
+    model = model.to("cuda", dtype, memory_format=torch.channels_last)
+    priors = flagship_priors()
+    priors = np.concatenate(
+        [priors, np.full((priors.shape[0], 1), 0.3, np.float32)], 1)
+    rois = locate_anchors(priors, (crop_hw[0] // 16, crop_hw[1] // 16), 16)
+    cfg = load_config("kitti_3d_full")
+    return build_video_serving_fn(
+        model, rois, priors[rois[:, 4].astype(np.int64), 4:],
+        np.zeros(14, np.float32), np.ones(14, np.float32),
+        np.asarray(cfg.image_means), np.asarray(cfg.image_stds), vcfg,
+        np.zeros(6), np.full(6, 0.1), target_h=crop_hw[0], crop_w=crop_hw[1],
+        bf16_input=False)
+
+
+def export_phase(dev, stamp):
+    """16: the serving artifacts (see the module docstring).  Returns the
+    launches of each kernel through the detection artifacts' timed runs."""
+    import importlib.util
+    import shutil
+
+    from groomed_nms_torch.data.augment import fit_image_to_plane
+    from groomed_nms_torch.data.kitti import read_kitti_calib
+    from groomed_nms_torch.data.png import read_png
+    from groomed_nms_torch.data.synthetic import kitti_p2
+    from groomed_nms_torch.export import (build_serving_fn, export_serving,
+                                          export_video_serving, load_serving)
+    from groomed_nms_torch.models.kalman import Tracks
+    from groomed_nms_torch.models.video import VideoConfig
+
+    launches = {}
+    # -- (a), (b) the detection artifact: greedy NMS, then GrooMeD-NMS
+    for name, groomed in (("greedy", False), ("groomed", True)):
+        infer, args, model = build_flagship(device="cuda",
+                                            differentiable_nms=groomed)
+        (u8, means, stds, rois, rois_3d, p2, p2_inv, scale, bmeans,
+         bstds) = args
+        dcfg = dataclasses.replace(
+            load_config("groomed_nms"),
+            use_differentiable_nms_at_test=groomed).detect_config()
+        batch, src_h, src_w = u8.shape[:3]
+        serve = build_serving_fn(model, rois, rois_3d, bmeans, bstds, means,
+                                 stds, dcfg, target_h=512, crop_w=1760,
+                                 bf16_input=True)
+        t0 = time.perf_counter()
+        blob = export_serving(serve, batch=batch, src_h=src_h, src_w=src_w)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_serving(blob, dev)
+        load_s = time.perf_counter() - t0
+        inputs = (u8, p2, p2_inv, scale)
+        with torch.no_grad():
+            want_d, want_v = serve(*inputs)
+        got_d, got_v = loaded(*inputs)
+        same = torch.equal(got_v, want_v)
+        err = ((got_d - want_d).abs() / (1 + want_d.abs()))[want_v].max() \
+            .item() if want_v.any() else 0.0
+        for _ in range(WARMUP):
+            loaded(*inputs)
+            infer(*args)
+        torch.cuda.synchronize()
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            for _ in range(TIMED):
+                fn()
+            torch.cuda.synchronize()
+            return batch * TIMED / (time.perf_counter() - t0)
+
+        art_img_s, n = count_launches(lambda: timed(lambda: loaded(*inputs)))
+        infer_img_s = timed(lambda: infer(*args))
+        want_n = dict.fromkeys(SERVING_KERNELS, 0)
+        want_n.update(dict.fromkeys(
+            ("fused_head_scores", "fused_iou_prune", "group_leaders")
+            if groomed else ("fused_head_scores", "greedy_nms"), TIMED))
+        print(f"export ({'b' if groomed else 'a'}): the flagship with "
+              f"{name} NMS (rpn3d, bf16, batch {batch}, 512x1760 from uint8 "
+              f"{src_h}x{src_w}): exported in {export_s:.1f} s, "
+              f"{len(blob) / 1e6:.1f} MB, loaded in {load_s:.1f} s; the "
+              f"loaded artifact vs the live closure: valid identical {same} "
+              f"({int(want_v.sum())} rows), max |err| / (1 + |x|) {err:.3e} "
+              f"(tol {ARTIFACT_TOL:g}); {TIMED} batches through the "
+              f"artifact {art_img_s:.2f} img/s beside make_infer's "
+              f"{infer_img_s:.2f}; launches {n} {stamp}", flush=True)
+        assert same and err <= ARTIFACT_TOL, \
+            f"the {name} artifact differs from its live closure"
+        assert n == want_n, f"expected {want_n} through the artifact, got {n}"
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        if not groomed:
+            served = (blob, infer, args)       # (d) serves this one
+        del serve, loaded, model
+    torch.cuda.empty_cache()
+
+    # -- (c) the video artifact: kitti_3d_full (T 128, M 64), 4 frames
+    cfg = load_config("kitti_3d_full")
+    vcfg = VideoConfig(rpn=cfg.rpn_config(NUM_ANCHORS),
+                       score_thres=VIDEO_SCORE_THRES, nms_thres=cfg.nms_thres,
+                       best_thresh=cfg.best_thresh)
+    rs = np.random.default_rng(16)
+    cam = np.concatenate([kitti_p2(), [[0.0, 0.0, 0.0, 1.0]]]).astype(
+        np.float32)
+    video = {}
+    for label, dtype, crop_hw in (("full width f32", torch.float32,
+                                   (512, 1760)),
+                                  ("128x416 f64", torch.float64, (128, 416))):
+        serve = video_serving(vcfg, dtype, crop_hw)
+        t0 = time.perf_counter()
+        blob = export_video_serving(serve, n_frames=4, src_h=375, src_w=1242)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_serving(blob, dev)
+        load_s = time.perf_counter() - t0
+        clip = torch.from_numpy(rs.integers(0, 256, (4, 375, 1242, 3),
+                                            dtype=np.uint8)).to(dev)
+        inputs = (clip, torch.from_numpy(cam).to(dev),
+                  torch.from_numpy(np.linalg.inv(cam)).to(dev),
+                  torch.full((4,), crop_hw[0] / 375, device=dev))
+        with torch.no_grad():
+            want = serve(*inputs)
+        got, n = count_launches(lambda: loaded(*inputs))
+        ok, err = tracks_agree(
+            [got], [Tracks(**{f.name: getattr(want, f.name).cpu()
+                              for f in dataclasses.fields(Tracks)})])
+        nodes = len(loaded.program.graph.nodes)
+        print(f"export (c): the video artifact, kitti_3d_full {label} "
+              f"(T {vcfg.max_tracks}, M {vcfg.max_measurements}, F 4, "
+              f"uint8 375x1242 clips): {nodes} graph nodes, exported in "
+              f"{export_s:.1f} s, {len(blob) / 1e6:.1f} MB, loaded in "
+              f"{load_s:.1f} s; loaded vs live closure: masks and ids "
+              f"identical {ok}, max err {err:.3e}; {int(want.valid.sum())} "
+              f"tracks; launches a clip {n} {stamp}", flush=True)
+        assert n == {**dict.fromkeys(SERVING_KERNELS, 0),
+                     "fused_head_scores": 1, "greedy_nms": 1}, n
+        if dtype == torch.float64:
+            assert ok and err <= TRACK_TOL, \
+                "the f64 video artifact differs from its live closure"
+        video[label] = n
+        del serve, loaded
+    torch.cuda.empty_cache()
+
+    # -- (d) scripts/serve_torch.py's main() over phase 12's frames
+    blob, infer, args = served
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    img_dir, cal_dir = (os.path.join(SERVE_DIR, d) for d in ("image_2",
+                                                             "calib"))
+    os.makedirs(img_dir)
+    os.makedirs(cal_dir)
+    split = os.path.join(EVAL_DIR, "data", "kitti_split1", "validation")
+    stems = sorted(os.path.splitext(f)[0] for f in os.listdir(
+        os.path.join(split, "image_2")))[:SERVE_FRAMES]
+    for stem in stems:
+        shutil.copy(os.path.join(split, "image_2", stem + ".png"), img_dir)
+        shutil.copy(os.path.join(split, "calib", stem + ".txt"), cal_dir)
+    art = os.path.join(SERVE_DIR, "model.pt2")
+    with open(art, "wb") as f:
+        f.write(blob)
+    batch, src_h, src_w = args[0].shape[:3]
+    with open(art + ".json", "w") as f:
+        json.dump({"batch": batch, "src_hw": [src_h, src_w],
+                   "crop_size": [512, 1760], "class_names": KITTI_CLASSES,
+                   "score_thres": 0.0, "device": str(dev)}, f)
+    assert sorted(os.listdir(SERVE_DIR)) == ["calib", "image_2", "model.pt2",
+                                             "model.pt2.json"]
+    spec = importlib.util.spec_from_file_location(
+        "serve_torch", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "serve_torch.py"))
+    serve_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(serve_script)
+    out_dir = os.path.join(SERVE_DIR, "served")
+    summary = serve_script.main(["--artifact", art, "--images", img_dir,
+                                 "--calib", cal_dir, "--out", out_dir])
+    # make_infer on the planes serve_torch builds: the same frames fitted
+    # into the 375x1242 plane (r = 1; the 370x1224 frames edge-padded), the
+    # same calibs and scales, batches of 8 in the same order
+    (_, means, stds, rois, rois_3d, _, _, _, bmeans, bstds) = args
+    ref_dir = os.path.join(SERVE_DIR, "make_infer")
+    os.makedirs(ref_dir)
+    sizes = {}
+    for i in range(0, len(stems), batch):
+        chunk = stems[i:i + batch]
+        planes, p2s, scales = [], [], []
+        for stem in chunk:
+            img = read_png(os.path.join(img_dir, stem + ".png"))
+            sizes[stem] = img.shape[:2]
+            plane, r = fit_image_to_plane(img, src_h, src_w)
+            planes.append(plane)
+            p2s.append(read_kitti_calib(os.path.join(
+                cal_dir, stem + ".txt")).astype(np.float32))
+            scales.append(512 / src_h * r)
+        p2b = np.stack(p2s)
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        dets, valid = infer(t(np.stack(planes), torch.uint8), means, stds,
+                            rois, rois_3d, t(p2b), t(np.linalg.inv(p2b)),
+                            t(scales), bmeans, bstds)
+        for j, stem in enumerate(chunk):
+            write_kitti_detections(os.path.join(ref_dir, stem + ".txt"),
+                                   dets[j].cpu().numpy(),
+                                   valid[j].cpu().numpy(), KITTI_CLASSES,
+                                   score_thres=0.0)
+    got, want = read_rows(out_dir), read_rows(ref_dir)
+    full = [s + ".txt" for s in stems if sizes[s] == (src_h, src_w)]
+    same, n, ok, max_err = row_agreement(
+        {k: got.get(k, []) for k in full}, {k: want[k] for k in full})
+    all_same, n_all, ok_all, _ = row_agreement(got, want)
+    print(f"export (d): serve_torch.py main() over {len(stems)} PNG frames "
+          f"of phase 12's tree ({len(full)} at {src_h}x{src_w}, r = 1), "
+          f"from a directory holding only the artifact, its json, the "
+          f"images and the calibs: {len(got)} txt files in "
+          f"{summary['wall_s']:.2f} s; against make_infer on the same "
+          f"planes: at {src_h}x{src_w} files/rows/classes equal {same}, "
+          f"{ok}/{n} rows within {TXT_ATOL:g} + {TXT_RTOL:g}|x|, max |err| "
+          f"{max_err:.3e}; every frame {all_same}, {ok_all}/{n_all} {stamp}",
+          flush=True)
+    assert sorted(got) == [s + ".txt" for s in stems], "one txt a frame"
+    assert same and n > 0 and ok == n, \
+        "serve_torch's rows differ from make_infer's"
+    return launches, video
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2472,8 +2753,9 @@ def main():
     train_entry_phase(dev, stamp)
     video = video_phase(dev, flush, stamp)
     video_train_phase(dev, stamp)
+    export_launches, export_video = export_phase(dev, stamp)
 
-    # -- 16. results ----------------------------------------------------------
+    # -- 17. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,
@@ -2498,14 +2780,20 @@ def main():
          "max_abs_err": max(k1_err, video["fused_head_scores"]["max_abs_err"]),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
-         "video": video["fused_head_scores"]},
+         "video": video["fused_head_scores"],
+         "export": {"launches": export_launches["fused_head_scores"],
+                    "video_launches": export_video["full width f32"][
+                        "fused_head_scores"]}},
         {"name": "greedy_nms", "route": "cuda",
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
          "launches": launches["greedy_nms"], "max_abs_err": 0.0,
          "ms": k2["flagship"]["ms"], "plain_ms": k2["flagship"]["plain_ms"],
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None, "video": video["greedy_nms"]},
+         "library_ms": None, "video": video["greedy_nms"],
+         "export": {"launches": export_launches["greedy_nms"],
+                    "video_launches": export_video["full width f32"][
+                        "greedy_nms"]}},
         # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
         # block 1 + block 2
         {"name": "dense_block_eval", "route": "cuda",
@@ -2527,7 +2815,8 @@ def main():
          "max_abs_err": max(v["max_abs"] for v in k3.values()),
          "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"],
          "bound_ms": k3["train"]["bound_ms"],
-         "bound_by": k3["train"]["bound_by"], "library_ms": None},
+         "bound_by": k3["train"]["bound_by"], "library_ms": None,
+         "export": {"launches": export_launches["fused_iou_prune"]}},
         # no TPU kernel: the JAX grouping is a lax.while_loop; launches the
         # train loop's, ms on the operator's own input at [8, 512]
         {"name": "group_leaders", "route": "cuda",
@@ -2536,7 +2825,8 @@ def main():
          "launches": train_launches["group_leaders"], "max_abs_err": 0.0,
          "ms": group["ms"], "plain_ms": group["plain_ms"],
          "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "export": {"launches": export_launches["group_leaders"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,6 +137,84 @@ def pad_image_edge(img, h0, w0):
     return out
 
 
+_PIL_PRECISION_BITS = 22          # Pillow's 8-bit resample: 32 - 8 - 2
+
+
+def _pil_bilinear_taps(in_size, out_size):
+    """Pillow's bilinear resample taps along one axis: (first input index
+    [out], fixed-point weights [out, ksize] with zeros past each output's
+    taps).  The arithmetic of Pillow's ``precompute_coeffs`` (a triangle
+    filter whose support widens by the downscale factor, the weights
+    normalised in f64, summed in tap order) and ``normalize_coeffs_8bpc``
+    (rounded to 22 fractional bits)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale                        # the triangle's support 1
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5),
+                      in_size).astype(np.int64) - xmin
+    taps = np.arange(ksize)
+    w = 1.0 - np.abs(((taps[None, :] + xmin[:, None]) - center[:, None]
+                      + 0.5) * (1.0 / filterscale))
+    w = np.where((w > 0.0) & (taps[None, :] < xmax[:, None]), w, 0.0)
+    total = np.zeros(out_size)
+    for t in taps:                               # Pillow's summation order
+        total = total + w[:, t]
+    w = w / np.where(total != 0.0, total, 1.0)[:, None]
+    return xmin, np.trunc(0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(
+        np.int64)
+
+
+def _pil_resample_axis(img, out_size, axis):
+    """One pass of Pillow's 8-bit bilinear resample along ``axis`` of a
+    uint8 [H, W, 3] image: a fixed-point sum from a rounding half, shifted
+    down and clipped to uint8."""
+    start, k = _pil_bilinear_taps(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1),
+                  np.int64)
+    for t in range(k.shape[1]):
+        idx = np.minimum(start + t, src.shape[0] - 1)
+        acc += src[idx] * k[:, t, None, None]
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def pil_bilinear_resize(img, out_h, out_w):
+    """uint8 [H, W, 3] -> [out_h, out_w, 3], as Pillow's
+    ``Image.resize((out_w, out_h), Image.BILINEAR)`` gives it: the
+    horizontal pass, rounded to uint8, then the vertical one."""
+    if img.shape[1] != out_w:
+        img = _pil_resample_axis(img, out_w, 1)
+    if img.shape[0] != out_h:
+        img = _pil_resample_axis(img, out_h, 0)
+    return img
+
+
+def fit_image_to_plane(img, h0, w0):
+    """Fit an arbitrary-size uint8 image into an [h0, w0, 3] plane
+    (``groomed_nms_tpu/data/augment.py::fit_image_to_plane``).
+
+    Oversized images are bilinearly downscaled (aspect kept, Pillow's
+    arithmetic through ``pil_bilinear_resize``) until they fit, then
+    edge-padded; smaller images are edge-padded directly.  Returns
+    ``(fitted, r)`` where ``r`` <= 1 is the ratio applied, recomputed from
+    the rounded height: a consumer mapping plane coordinates back to the
+    original pixels folds ``r`` into its scale (original = plane / r).
+    """
+    h, w = img.shape[:2]
+    r = min(h0 / h, w0 / w, 1.0)
+    if r < 1.0:
+        nh, nw = min(int(round(h * r)), h0), min(int(round(w * r)), w0)
+        img = pil_bilinear_resize(img, nh, nw)
+        r = nh / h
+    if img.shape[:2] == (h0, w0):
+        return img, r
+    return pad_image_edge(img, h0, w0), r
+
+
 def scale_labels(gts, scale_factor):
     """Scale the 2D boxes and the projected 3D centres (columns 0-1 of
     ``bbox_3d``) by ``scale_factor``; a record without GTs comes back as

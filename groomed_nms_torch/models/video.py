@@ -94,17 +94,21 @@ def extract_measurements(outputs: RPNOutputs, rois, rois_3d, p2, scale,
     n3d = outputs.n_box3d
     means, stds = bbox_means.float(), bbox_stds.float()
 
-    scores = fused_head_scores(fused, None, num_classes=c)       # [F, R]
+    # K1 ranks the anchors (an f64 head, a checking mode, rounded to f32
+    # for it); the kept rows are decoded in the head's dtype, f32 at least
+    head = fused.float() if fused.dtype == torch.float64 else fused
+    scores = fused_head_scores(head, None, num_classes=c)        # [F, R]
     key = torch.where(scores >= cfg.score_thres, scores, float("-inf"))
     idx = top_k_indices(key, cfg.max_measurements)               # [F, M]
     vals = torch.gather(key, 1, idx)
     valid = vals > float("-inf")
-    sc = torch.gather(scores, 1, idx)
 
-    sel = _rows(fused, idx).float()                              # [F, M, per]
+    sel = _rows(fused, idx)                                      # [F, M, per]
+    sel = sel.to(torch.promote_types(sel.dtype, torch.float32))
     r2, r3 = rois[idx], rois_3d[idx]
     prob = torch.softmax(sel[..., :c], dim=-1)
-    cls_pred = (prob[..., 1:].argmax(-1) + 1).float()
+    sc = prob[..., 1:].amax(-1)
+    cls_pred = (prob[..., 1:].argmax(-1) + 1).to(sc.dtype)
     b3 = sel[..., c + N_BOX2D:c + N_BOX2D + n3d]
     axis_p, head = torch.sigmoid(b3[..., 8]), torch.sigmoid(b3[..., 9])
     un = torch.sigmoid(sel[..., c + N_BOX2D + n3d]) \
@@ -143,7 +147,7 @@ def extract_measurements(outputs: RPNOutputs, rois, rois_3d, p2, scale,
     ry3d = alpha_to_rot_y(snap_to_pi(alpha), z3d, x3d)
 
     keep = greedy_nms(
-        torch.where(valid[..., None], coords, 0.0).contiguous(),
+        torch.where(valid[..., None], coords, 0.0).float().contiguous(),
         torch.where(valid, vals, 0.0).contiguous(),
         nms_threshold=cfg.nms_thres, shift=1.0)
     meas = torch.stack([

@@ -31,6 +31,17 @@ kernel, and on any other device it raises.  ``<wrapper>.launches`` counts the
 calls that launched the kernel (plain-version calls are not counted; one K4
 call is 2L CUDA launches, one per conv of each layer).  Triton is imported
 and the CUDA library built only when a kernel is first launched.
+
+The four kernels of the serving paths (K1, K2, K3 and the grouping) are
+``torch.library`` custom ops, ``torch.ops.groomed_nms.*``: the CPU kernel
+of each is its plain version, the CUDA kernel the hand-written one, and a
+fake implementation gives ``torch.export`` the output shapes, so an
+exported program (``export.py``) holds each kernel as one node.  The public
+wrappers check shapes, dtypes and devices and call the op; the checks that
+need real storage (contiguity, alignment, the kernels' size limits) and the
+launch counts live in the ops' implementations, so tracing counts nothing.
+No op has an autograd formula: K2's output is a mask, and the callers of K1,
+K3 and the grouping run without a gradient through them.
 """
 
 from __future__ import annotations
@@ -65,6 +76,24 @@ def _device_kind(t):
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return kind
+
+
+def _check_contiguous(**tensors):
+    for name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _custom_op(name, schema):
+    """A ``groomed_nms::<name>`` op whose CPU kernel is the decorated
+    function; the CUDA kernel and the fake are registered on the result."""
+    return torch.library.custom_op(f"groomed_nms::{name}", mutates_args=(),
+                                   device_types="cpu", schema=schema)
+
+
+def _check_launch(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -133,18 +162,33 @@ def fused_head_scores(fused, accept=None, *, num_classes):
     b, r, per = fused.shape
     if not 2 <= num_classes <= per:
         raise ValueError(f"num_classes={num_classes} with per={per}")
-    if not fused.is_contiguous():
-        raise ValueError("fused must be contiguous")
     if accept is not None and (
             accept.shape != (b, r) or accept.dtype != torch.float32
-            or accept.device != fused.device or not accept.is_contiguous()):
+            or accept.device != fused.device):
         raise ValueError(f"accept must be a contiguous f32 [{b}, {r}] on "
                          f"{fused.device}, got {tuple(accept.shape)} "
                          f"{accept.dtype} on {accept.device}")
-    if _device_kind(fused) == "cpu":
-        return fused_head_scores_plain(fused, accept, num_classes=num_classes)
+    _device_kind(fused)
+    return torch.ops.groomed_nms.fused_head_scores(fused, accept, num_classes)
 
+
+@_custom_op("fused_head_scores",
+            "(Tensor fused, Tensor? accept, int num_classes) -> Tensor")
+def _head_scores_cpu(fused, accept, num_classes):
+    _check_contiguous(fused=fused, accept=accept)
+    return fused_head_scores_plain(fused, accept, num_classes=num_classes)
+
+
+@_head_scores_cpu.register_fake
+def _(fused, accept, num_classes):
+    return fused.new_empty(fused.shape[:2], dtype=torch.float32)
+
+
+@_head_scores_cpu.register_kernel("cuda")
+def _(fused, accept, num_classes):
+    _check_contiguous(fused=fused, accept=accept)
     triton, kernel = _head_scores_kernel()
+    b, r, per = fused.shape
     out = torch.empty((b, r), dtype=torch.float32, device=fused.device)
     n_rows = b * r
     with torch.cuda.device(fused.device):
@@ -200,12 +244,27 @@ def greedy_nms(boxes, scores, *, nms_threshold=0.4, shift=1.0):
                          f"and {scores.dtype}")
     if scores.device != boxes.device:
         raise ValueError(f"boxes on {boxes.device}, scores on {scores.device}")
-    if not (boxes.is_contiguous() and scores.is_contiguous()):
-        raise ValueError("boxes and scores must be contiguous")
-    if _device_kind(boxes) == "cpu":
-        return greedy_nms_plain(boxes, scores, nms_threshold=nms_threshold,
-                                shift=shift)
+    _device_kind(boxes)
+    return torch.ops.groomed_nms.greedy_nms(
+        boxes, scores, float(nms_threshold), float(shift))
 
+
+@_custom_op("greedy_nms", "(Tensor boxes, Tensor scores, float nms_threshold,"
+            " float shift) -> Tensor")
+def _greedy_nms_cpu(boxes, scores, nms_threshold, shift):
+    _check_contiguous(boxes=boxes, scores=scores)
+    return greedy_nms_plain(boxes, scores, nms_threshold=nms_threshold,
+                            shift=shift)
+
+
+@_greedy_nms_cpu.register_fake
+def _(boxes, scores, nms_threshold, shift):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+@_greedy_nms_cpu.register_kernel("cuda")
+def _(boxes, scores, nms_threshold, shift):
+    _check_contiguous(boxes=boxes, scores=scores)
     b, n = scores.shape
     if n > _NMS_MAX_N or b > 65535:
         raise ValueError(f"greedy_nms takes B <= 65535 and N <= {_NMS_MAX_N},"
@@ -219,10 +278,9 @@ def greedy_nms(boxes, scores, *, nms_threshold=0.4, shift=1.0):
     with torch.cuda.device(boxes.device):
         err = lib.greedy_nms(
             boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(),
-            keep.data_ptr(), b, n, float(nms_threshold), float(shift),
+            keep.data_ptr(), b, n, nms_threshold, shift,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"greedy_nms kernel launch failed: CUDA error {err}")
+    _check_launch(err, "greedy_nms")
     greedy_nms.launches += 1
     return keep
 
@@ -292,8 +350,6 @@ def fused_iou_prune(boxes, valid=None, *, nms_threshold=0.4, temperature=0.1,
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
         raise ValueError(f"boxes must be [B, N, 4] f32, got "
                          f"{tuple(boxes.shape)} {boxes.dtype}")
-    if not boxes.is_contiguous():
-        raise ValueError("boxes must be contiguous")
     if pruning_method not in PRUNING_METHODS:
         raise ValueError(f"pruning_method must be one of {PRUNING_METHODS}, "
                          f"got {pruning_method!r}")
@@ -301,15 +357,37 @@ def fused_iou_prune(boxes, valid=None, *, nms_threshold=0.4, temperature=0.1,
     if valid is None:
         valid = torch.ones((b, n), dtype=torch.bool, device=boxes.device)
     if valid.shape != (b, n) or valid.dtype != torch.bool or \
-            valid.device != boxes.device or not valid.is_contiguous():
+            valid.device != boxes.device:
         raise ValueError(f"valid must be a contiguous bool [{b}, {n}] on "
                          f"{boxes.device}, got {tuple(valid.shape)} "
                          f"{valid.dtype} on {valid.device}")
-    kw = dict(nms_threshold=nms_threshold, temperature=temperature,
-              pruning_method=pruning_method, shift=shift)
-    if _device_kind(boxes) == "cpu":
-        return fused_iou_prune_plain(boxes, valid, **kw)
+    _device_kind(boxes)
+    return torch.ops.groomed_nms.fused_iou_prune(
+        boxes, valid, float(nms_threshold), float(temperature),
+        pruning_method, float(shift))
 
+
+@_custom_op("fused_iou_prune", "(Tensor boxes, Tensor valid, float "
+            "nms_threshold, float temperature, str pruning_method, float "
+            "shift) -> (Tensor, Tensor)")
+def _iou_prune_cpu(boxes, valid, nms_threshold, temperature, pruning_method,
+                   shift):
+    _check_contiguous(boxes=boxes, valid=valid)
+    return fused_iou_prune_plain(
+        boxes, valid, nms_threshold=nms_threshold, temperature=temperature,
+        pruning_method=pruning_method, shift=shift)
+
+
+@_iou_prune_cpu.register_fake
+def _(boxes, valid, nms_threshold, temperature, pruning_method, shift):
+    b, n, _ = boxes.shape
+    return boxes.new_empty((b, n, n)), boxes.new_empty((b, n, n))
+
+
+@_iou_prune_cpu.register_kernel("cuda")
+def _(boxes, valid, nms_threshold, temperature, pruning_method, shift):
+    _check_contiguous(boxes=boxes, valid=valid)
+    b, n, _ = boxes.shape
     if b > 65535 or n > 65535 * _IOU_TILE:
         raise ValueError(f"fused_iou_prune takes B <= 65535 and N <= "
                          f"{65535 * _IOU_TILE}, got B={b}, N={n}")
@@ -322,11 +400,9 @@ def fused_iou_prune(boxes, valid=None, *, nms_threshold=0.4, temperature=0.1,
         err = lib.iou_prune(
             boxes.data_ptr(), valid.data_ptr(), iou.data_ptr(),
             prune.data_ptr(), b, n, PRUNING_METHODS.index(pruning_method),
-            float(nms_threshold), float(temperature), float(shift),
+            nms_threshold, temperature, shift,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_iou_prune kernel launch failed: CUDA "
-                           f"error {err}")
+    _check_launch(err, "fused_iou_prune")
     fused_iou_prune.launches += 1
     return iou, prune
 
@@ -423,18 +499,34 @@ def group_leaders(m, valid, *, nms_threshold, group_size):
     if m.dim() != 3 or m.shape[1] != m.shape[2] or m.dtype != torch.float32:
         raise ValueError(f"m must be [B, N, N] f32, got {tuple(m.shape)} "
                          f"{m.dtype}")
-    if not m.is_contiguous():
-        raise ValueError("m must be contiguous")
     b, n, _ = m.shape
     if valid.shape != (b, n) or valid.dtype != torch.bool or \
-            valid.device != m.device or not valid.is_contiguous():
+            valid.device != m.device:
         raise ValueError(f"valid must be a contiguous bool [{b}, {n}] on "
                          f"{m.device}, got {tuple(valid.shape)} "
                          f"{valid.dtype} on {valid.device}")
-    if _device_kind(m) == "cpu":
-        return group_leaders_plain(m, valid, nms_threshold=nms_threshold,
-                                   group_size=group_size)
+    _device_kind(m)
+    return torch.ops.groomed_nms.group_leaders(
+        m, valid, float(nms_threshold), float(group_size))
 
+
+@_custom_op("group_leaders", "(Tensor m, Tensor valid, float nms_threshold, "
+            "float group_size) -> Tensor")
+def _group_leaders_cpu(m, valid, nms_threshold, group_size):
+    _check_contiguous(m=m, valid=valid)
+    return group_leaders_plain(m, valid, nms_threshold=nms_threshold,
+                               group_size=group_size)
+
+
+@_group_leaders_cpu.register_fake
+def _(m, valid, nms_threshold, group_size):
+    return valid.new_empty(valid.shape, dtype=torch.int64)
+
+
+@_group_leaders_cpu.register_kernel("cuda")
+def _(m, valid, nms_threshold, group_size):
+    _check_contiguous(m=m, valid=valid)
+    b, n, _ = m.shape
     if n > _GROUP_MAX_N or b > 65535:
         raise ValueError(f"group_leaders takes B <= 65535 and N <= "
                          f"{_GROUP_MAX_N}, got B={b}, N={n}")
@@ -449,11 +541,9 @@ def group_leaders(m, valid, *, nms_threshold, group_size):
     with torch.cuda.device(m.device):
         err = lib.group_leaders(
             m.data_ptr(), valid.data_ptr(), sup.data_ptr(), over.data_ptr(),
-            out.data_ptr(), b, n, float(nms_threshold), cap,
+            out.data_ptr(), b, n, nms_threshold, cap,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"group_leaders kernel launch failed: CUDA error "
-                           f"{err}")
+    _check_launch(err, "group_leaders")
     group_leaders.launches += 1
     return out
 

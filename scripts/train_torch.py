@@ -52,8 +52,13 @@ import sys
 import time
 from types import SimpleNamespace
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                os.pardir))
+# run as a file, this directory comes first on sys.path, and
+# scripts/profile.py would shadow the standard library's profile (torch
+# imports it when a custom op first runs): the repository root replaces it
+_HERE = os.path.dirname(os.path.abspath(__file__))
+if os.path.abspath(sys.path[0]) == _HERE:
+    sys.path.pop(0)
+sys.path.insert(0, os.path.dirname(_HERE))
 
 KERNELS = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
            "group_leaders")

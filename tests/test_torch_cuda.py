@@ -994,3 +994,97 @@ def test_fused_track_loss_on_cuda_matches_cpu(cuda):
     assert ref[2].abs().max() > 0 and (ref[2][0] == 0).all()
     for g, r in ((got[0], ref[0]), (got[2], ref[2])):
         assert ((g - r).abs() <= 1e-9 * (1 + r.abs())).all(), (g, r)
+
+
+# ---------------------------------------------------------------------------
+# the serving artifact: the custom ops and an exported tiny program
+# ---------------------------------------------------------------------------
+
+def _op_case(name, device):
+    """The positional arguments of one seeded call of each
+    ``torch.ops.groomed_nms`` op."""
+    rs = np.random.default_rng(len(name))
+    boxes_np, scores_np = _nms_case(rs, 2, 300)
+    boxes, scores = (torch.from_numpy(x).to(device)
+                     for x in (boxes_np, scores_np))
+    valid = scores > 0
+    if name == "fused_head_scores":
+        fused = torch.from_numpy(rs.normal(0, 3, (2, 5000, 18)).astype(
+            np.float32)).to(torch.bfloat16).to(device)
+        return fused, torch.rand((2, 5000), device=device), 4
+    if name == "greedy_nms":
+        return boxes, scores, 0.4, 1.0
+    if name == "fused_iou_prune":
+        return boxes, valid, 0.4, 0.1, "linear", 0.0
+    iou = kernels.fused_iou_prune_plain(boxes, valid)[0]
+    return iou, valid, 0.4, 100.0
+
+
+@pytest.mark.parametrize("name", ["fused_head_scores", "greedy_nms",
+                                  "fused_iou_prune", "group_leaders"])
+def test_custom_op_on_cuda_launches_the_kernel(cuda, name):
+    """``torch.ops.groomed_nms.<name>`` on CUDA tensors is the hand-written
+    kernel (one launch counted) and agrees with its plain version; on CPU
+    copies of the inputs it is the plain version (no launch)."""
+    args = _op_case(name, cuda)
+    op = getattr(torch.ops.groomed_nms, name)
+    wrapper = getattr(kernels, name)
+    before = wrapper.launches
+    got = op(*args)
+    assert wrapper.launches == before + 1
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    ref = op(*cpu_args)
+    assert wrapper.launches == before + 1
+    torch.cuda.synchronize()
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert g.device.type == "cuda" and g.dtype == r.dtype
+        torch.testing.assert_close(g.cpu(), r, rtol=0,
+                                   atol=1e-6 if name == "fused_head_scores"
+                                   else 0)
+
+
+@pytest.mark.parametrize("groomed", [False, True])
+def test_tiny_artifact_on_cuda_matches_its_live_closure(cuda, groomed):
+    """The tiny model's serving program exported on the card, saved, loaded:
+    its rows equal the live closure's, its kernels one launch each."""
+    from groomed_nms_torch.export import (build_serving_fn, export_serving,
+                                          load_serving)
+
+    cfg = RPNConfig(num_anchors=6, prop_features=64,
+                    predict_acceptance_prob=True,
+                    backbone=tiny_densenet_config())
+    rs = np.random.default_rng(1)
+    priors = np.concatenate([np.tile([[0, 0, 30, 20]], (6, 1)) * rs.uniform(
+        0.5, 2, (6, 1)), np.abs(rs.normal(size=(6, 7))) + 1], 1)
+    rois = locate_anchors(priors, (4, 8), 16)
+    dcfg = DetectConfig(nms_topN_pre=64, nms_topN_post=8,
+                        use_differentiable_nms=groomed, diff_nms_boxes=48,
+                        diff_nms_valid_box_prob_threshold=0.05)
+    model = init_weights(RPN3D(cfg), torch.Generator().manual_seed(1))
+    serve = build_serving_fn(
+        model.to(cuda), rois, priors[rois[:, 4].astype(int), 4:],
+        np.zeros(13), np.ones(13), np.asarray([0.485, 0.456, 0.406]),
+        np.asarray([0.229, 0.224, 0.225]), dcfg, target_h=64, crop_w=128,
+        bf16_input=True)
+    loaded = load_serving(export_serving(serve, batch=2, src_h=48, src_w=96),
+                          "cuda")
+    p2 = torch.tensor(np.diag([700.0, 700.0, 1.0, 1.0]), dtype=torch.float32,
+                      device=cuda).expand(2, 4, 4).contiguous()
+    args = (torch.from_numpy(rs.integers(0, 256, (2, 48, 96, 3)).astype(
+        np.uint8)).to(cuda), p2, torch.linalg.inv(p2),
+        torch.full((2,), 64 / 48, device=cuda))
+    with torch.no_grad():
+        want_d, want_v = serve(*args)
+    names = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+             "group_leaders")
+    before = {n: getattr(kernels, n).launches for n in names}
+    got_d, got_v = loaded(*args)
+    launched = {n: getattr(kernels, n).launches - before[n] for n in names}
+    assert launched == {"fused_head_scores": 1, "greedy_nms": int(not groomed),
+                        "fused_iou_prune": int(groomed),
+                        "group_leaders": int(groomed)}
+    assert torch.equal(got_v, want_v) and want_v.any()
+    torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        loaded(*(a.cpu() for a in args))

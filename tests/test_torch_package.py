@@ -37,6 +37,31 @@ def test_package_imports_without_jax():
     assert int(out.stdout.split()[-1]) >= 24
 
 
+@pytest.mark.parametrize("script,argv", [
+    ("export_torch", ["--config", "groomed_nms"]),
+    ("serve_torch", ["--artifact", "model.pt2", "--images", "images"]),
+])
+def test_serving_scripts_import_without_jax(script, argv):
+    """The export and serve scripts, imported and their arguments parsed,
+    with the export module, pull in none of the modules the GPU machine
+    lacks (that loading an artifact imports none of them either is checked
+    by ``serve_torch.py`` run with them blocked, ``test_torch_export.py``)."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', "
+        f"{os.path.join(ROOT, 'scripts', script + '.py')!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        f"mod.parse_args({argv!r})\n"
+        "import groomed_nms_torch.export\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', 'matplotlib'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_config_jsons_regenerate_identically(tmp_path):
     """The checked-in JSONs equal a fresh dump of the JAX configs."""
     out = subprocess.run(
