@@ -174,11 +174,33 @@ Phases, in order; any failure raises and exits non-zero:
                 json, the images and the calibs: one txt a frame, the
                 375x1242 frames' rows (r = 1) equal to make_infer's on the
                 same planes by phase 12's rule;
- 17. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+ 17. options -- the options of the entry points: (a)
+                scripts/evaluate_torch.py's main() with --refine on phase
+                12's tree (groomed_nms, grouped, bf16, batch 8): a txt file
+                a frame, K1 and K2 once a batch; the loop's img/s with and
+                without --refine, in turns, over the tree x OPTION_REPEAT;
+                one batch's refine_detections card against CPU path in f64
+                under sync debug mode "error" (f32 reported), its host ms,
+                device ms and launches (torch.profiler); (b)
+                scripts/train_torch.py's main() with --config groomed_nms
+                --set distort_prob=0.5 on phase 13's tree (batch 2, f32,
+                512x1760, warm-started from phase 13's stage 1,
+                JITTER_STEPS steps): K3 and the grouping once a step, the
+                loss finite; ms/step in two runs beside two of the same run
+                without jitter, in turns, and phase 13's stage 2; the draws
+                of those steps equal on the card and the CPU path, the
+                jitter of two training frames card against CPU path; (c)
+                soft_nms at N SOFT_NMS_N (the three methods), roi_align on
+                a [32, 110, 256] map with 64 rois (values and feature
+                gradients), ranknet_loss and custom_mse (values and
+                gradients), card against CPU path;
+ 18. the kernels JSON line (K1 and K2 with a "video" entry each: the check
      at the video path's shape, its times and bound, and its launches; K1,
      K2, K3 and the grouping with an "export" entry: their launches through
      the detection artifacts of phase 16, K1's and K2's through one video
-     clip), then the last line: {"ok": true, "device": {...}}.
+     clip; K1 and K2 with an "options" entry: their launches in the
+     --refine run, K3 and the grouping: in the jittered run), then the last
+     line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
 run; every error is printed before it is checked.
@@ -192,6 +214,7 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1420,7 +1443,8 @@ def tiny_loop(script, root, device, dtype):
 
 def train_entry_phase(dev, stamp):
     """13: scripts/train_torch.py, the paper's two stages at full width,
-    checked and timed (see the module docstring)."""
+    checked and timed (see the module docstring).  Returns the resumed
+    stage 2's (ms/step, img/s, host_wait share)."""
     import importlib.util
     import shutil
 
@@ -1614,6 +1638,7 @@ def train_entry_phase(dev, stamp):
           f"{TINY_LOOP_REL:g}), f32 with TF32 off {errs['f32']:.3e} "
           f"(reported)", flush=True)
     assert errs["f64"] <= TINY_LOOP_REL, "the tiny loop differs on the card"
+    return train_rate(s3)
 
 
 # the video slice (phase 14): the tracker on the card against its CPU path
@@ -2436,6 +2461,372 @@ def export_phase(dev, stamp):
     return launches, video
 
 
+# the options of the entry points (phase 17): --refine on phase 12's tree,
+# photometric jitter on phase 13's, the library ops.  refine_detections card
+# against CPU path in f64: the same rows kept as they came and every number
+# within REFINE_TOL of 1 + |x| (each climb step is a discrete choice, held
+# where a rounding is ~1e-16; f32 reported); the jitter's draws equal on
+# both, a jittered batch within JITTER_ATOL_255 on the 0-255 scale (the
+# resize and the means summed in other orders); soft-NMS keep masks
+# identical and scores within OPS_TOL; RoIAlign values and feature gradients
+# within ROI_TOL of their largest magnitude (atomic adds in the backward on
+# the card); RankNet and the MSE, values and gradients within OPS_TOL
+REFINE_TOL, JITTER_ATOL_255, OPS_TOL, ROI_TOL = 1e-9, 1e-3, 1e-6, 1e-5
+OPTION_REPEAT = 3                     # phase 12's tree repeated for img/s
+JITTER_STEPS, SOFT_NMS_N = 8, 1000
+
+
+def load_script(name):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def refine_check(dets, valid, p2, p2_inv, dev, stamp):
+    """refine_detections of one batch: card against CPU path in f64 (no
+    host synchronisation on the card) and in f32 (reported); its host ms,
+    device ms and launches.  Returns the host ms, device ms and launches."""
+    from groomed_nms_torch.inference import refine_detections
+
+    def kept(out, d):
+        return (out == d).all(-1)
+
+    errs = {}
+    for name, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        args = (dets.to(dt), valid, p2.to(dt), p2_inv.to(dt))
+        refine_detections(*args)             # the signs' constants copied
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = refine_detections(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cpu = [a.cpu() for a in args]
+        want = refine_detections(*cpu)
+        got = got.cpu()
+        err = ((got - want).abs() / (1 + want.abs())).amax(-1)
+        errs[name] = (torch.equal(kept(got, cpu[0]), kept(want, cpu[0])),
+                      err.max().item(), int((err > 1e-4).sum()),
+                      int((~kept(want, cpu[0]) & cpu[1]).sum()))
+    same, err, _, moved = errs["f64"]
+    print(f"options (a): refine_detections of one batch {list(dets.shape)}, "
+          f"card vs CPU path: f64 the same rows kept {same}, {moved} valid "
+          f"rows refined, max err / (1 + |x|) {err:.3e} (tol "
+          f"{REFINE_TOL:g}), no host synchronisation; f32 (reported) the "
+          f"same rows kept {errs['f32'][0]}, max err {errs['f32'][1]:.3e}, "
+          f"{errs['f32'][2]} rows past 1e-4", flush=True)
+    assert same and err <= REFINE_TOL and moved > 0, errs["f64"]
+
+    def call():
+        refine_detections(dets, valid, p2, p2_inv)
+
+    host_ms = wall_ms(call, 5)
+    ks = trace_kernels(call)
+    dev_ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3
+    print(f"options (a): refine_detections a batch of 8 x 40 rows (f32): "
+          f"host {host_ms:.2f} ms (synchronised), device {dev_ms:.3f} ms in "
+          f"{len(ks)} kernel launches (torch.profiler) {stamp}", flush=True)
+    return host_ms, dev_ms, len(ks)
+
+
+def library_ops_check(dev, stamp):
+    """17 (c): soft-NMS, RoIAlign, RankNet and the MSE, card against CPU
+    path (see the module docstring)."""
+    from groomed_nms_torch.losses import ranknet_loss
+    from groomed_nms_torch.losses.custom_loss import custom_mse
+    from groomed_nms_torch.ops import nms
+    from groomed_nms_torch.ops.roi_align import roi_align
+
+    rs = np.random.default_rng(17)
+    xy = rs.uniform(0, 1200, (SOFT_NMS_N, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(20, 200, (SOFT_NMS_N, 2))],
+                           1).astype(np.float32)
+    scores = rs.uniform(0.01, 1, SOFT_NMS_N).astype(np.float32)
+    soft = {}
+    for method in ("linear", "gaussian", "hard"):
+        kw = dict(nms_threshold=0.3, method=method, score_threshold=0.05)
+        got = nms.soft_nms(torch.from_numpy(boxes).to(dev),
+                           torch.from_numpy(scores).to(dev), **kw)
+        want = nms.soft_nms(torch.from_numpy(boxes),
+                            torch.from_numpy(scores), **kw)
+        same = torch.equal(got[1].cpu(), want[1])
+        err = (got[0].cpu() - want[0]).abs().max().item()
+        ms_ = wall_ms(lambda: nms.soft_nms(
+            torch.from_numpy(boxes).to(dev),
+            torch.from_numpy(scores).to(dev), **kw), 2)
+        soft[method] = (same, err, int(want[1].sum()), ms_)
+        assert same and err <= OPS_TOL, (method, same, err)
+    feats = torch.from_numpy(rs.normal(size=(32, 110, 256)).astype(
+        np.float32))
+    xy = rs.uniform(0, [1700, 480], (64, 2))
+    rois_np = np.concatenate([xy, xy + rs.uniform(16, 400, (64, 2))],
+                             1).astype(np.float32)
+    cot = torch.from_numpy(rs.normal(size=(64, 7, 7, 256)).astype(
+        np.float32))
+    roi_out = {}
+    for device in ("cpu", dev):
+        f = feats.to(device).detach().requires_grad_()
+        out = roi_align(f, torch.from_numpy(rois_np).to(device),
+                        output_size=(7, 7), spatial_scale=1 / 16)
+        (out * cot.to(device)).sum().backward()
+        roi_out[str(device)] = (out.detach().cpu(), f.grad.cpu())
+    (o_g, g_g), (o_c, g_c) = roi_out[str(dev)], roi_out["cpu"]
+    roi_err = ((o_g - o_c).abs().max() / o_c.abs().max()).item()
+    roi_gerr = ((g_g - g_c).abs().max() / g_c.abs().max()).item()
+    s = rs.normal(0, 2, 512).astype(np.float32)
+    rel = rs.integers(0, 4, 512).astype(np.float32)
+    mask = rs.uniform(size=512) > 0.1
+    loss_err = 0.0
+    for fn in (lambda x, d: ranknet_loss(
+                   x, torch.from_numpy(rel).to(d),
+                   torch.from_numpy(mask).to(d), weight_by_diff=True),
+               lambda x, d: custom_mse(x, torch.from_numpy(rel).to(d), 2.5)):
+        res = []
+        for device in ("cpu", dev):
+            x = torch.from_numpy(s).to(device).requires_grad_()
+            val = fn(x, device)
+            val.backward()
+            res.append((val.detach().cpu(), x.grad.cpu()))
+        loss_err = max(loss_err, (res[1][0] - res[0][0]).abs().item(),
+                       (res[1][1] - res[0][1]).abs().max().item())
+    print(f"options (c): card vs CPU path: soft_nms at N {SOFT_NMS_N} "
+          + "; ".join(f"{m} keep identical {v[0]} ({v[2]} kept), max "
+                      f"|score err| {v[1]:.2e}, {v[3]:.1f} ms a call"
+                      for m, v in soft.items())
+          + f"; roi_align [32, 110, 256] x 64 rois (7x7, 1/16): max err / "
+          f"max {roi_err:.2e}, feature gradient {roi_gerr:.2e} (tol "
+          f"{ROI_TOL:g}); ranknet_loss and custom_mse at N 512, values and "
+          f"gradients max |err| {loss_err:.2e} (tol {OPS_TOL:g}) {stamp}",
+          flush=True)
+    assert roi_err <= ROI_TOL and roi_gerr <= ROI_TOL
+    assert loss_err <= OPS_TOL
+
+
+def options_phase(dev, flush, stamp, stage2_rate):
+    """17: --refine, photometric jitter and the library ops (see the module
+    docstring).  ``stage2_rate`` is phase 13's stage-2 (ms/step, img/s,
+    host_wait share).  Returns the kernels' launches on the two paths."""
+    import shutil
+
+    from groomed_nms_torch.anchors import locate_anchors
+    from groomed_nms_torch.config import apply_overrides
+    from groomed_nms_torch.data import png
+    from groomed_nms_torch.data.augment import photometric_distort
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.eval import tester
+    from groomed_nms_torch.flagship import flagship_priors
+    from groomed_nms_torch.training.trainer import (fuse_preprocess,
+                                                    jitter_draws)
+
+    names = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+             "group_leaders")
+
+    def counts():
+        return {n: getattr(kernels, n).launches for n in names}
+
+    # -- (a) --refine through scripts/evaluate_torch.py on phase 12's tree
+    data_root = os.path.join(EVAL_DIR, "data")
+    out_root = os.path.join(EVAL_DIR, "output")
+    imdb = build_imdb(os.path.join(data_root, "kitti_split1"), "validation")
+    b = 8
+    n_batches = sum(-(-sum(1 for r in imdb if (r.im_h, r.im_w) == sz) // b)
+                    for sz in EVAL_SIZES)
+    results = os.path.join(out_root, "groomed_nms", "results", "results_0",
+                           "data")
+    shutil.rmtree(results, ignore_errors=True)
+    script = load_script("evaluate_torch")
+    for n in names:
+        getattr(kernels, n).launches = 0
+    t = time.perf_counter()
+    script.main(["--config", "groomed_nms", "--data-root", data_root,
+                 "--output", out_root, "--restore", "0", "--batch", str(b),
+                 "--set", "score_thres=0.0", "--set",
+                 "compute_dtype=bfloat16", "--refine"])
+    wall = time.perf_counter() - t
+    refine_launches = counts()
+    rows = read_rows(results)
+    n_rows = sum(len(v) for v in rows.values())
+    moved = None
+    plain_dir = os.path.join(EVAL_DIR, "a_grouped")
+    if os.path.isdir(plain_dir):           # phase 12's grouped bf16 rows
+        plain = read_rows(plain_dir)
+        moved = sum(not np.array_equal(r[1], p[1]) for name, rs in
+                    rows.items() for r, p in zip(rs, plain.get(name, [])))
+    print(f"options (a): evaluate_torch.py --refine, groomed_nms grouped "
+          f"bf16 batch {b}: {len(rows)} txt files for {len(imdb)} frames, "
+          f"{n_rows} rows ({moved} differ from phase 12's grouped rows); "
+          f"launches {refine_launches}; {wall:.1f} s with set-up and the "
+          f"evaluator {stamp}", flush=True)
+    assert sorted(rows) == sorted(r.id + ".txt" for r in imdb) and n_rows
+    assert refine_launches == dict(
+        fused_head_scores=n_batches, greedy_nms=n_batches, fused_iou_prune=0,
+        group_leaders=0), refine_launches
+
+    # the loop's img/s with and without --refine, in turns, after a warm-up
+    cfg = apply_overrides(load_config("groomed_nms"),
+                          ["score_thres=0.0", "compute_dtype=bfloat16"])
+    model = perturbed_rpn3d(seed=7).to(dev, memory_format=torch.channels_last)
+    priors = flagship_priors()
+    rois = locate_anchors(priors, (512 // 16, 1760 // 16), 16)
+    rois_3d = priors[rois[:, 4].astype(np.int64), 4:]
+    long_imdb = list(imdb) * OPTION_REPEAT
+
+    def loop(refine):
+        stats = {}
+        tester.test_kitti_3d(cfg, model, rois, rois_3d, np.zeros(13),
+                             np.ones(13), long_imdb,
+                             os.path.join(EVAL_DIR, "loop_refine"),
+                             batch_size=b, skip_eval=True,
+                             log_fn=lambda s: None, loop_stats=stats,
+                             refine=refine)
+        return stats["images"] / stats["wall_s"]
+
+    loop(True)
+    rates = {False: [], True: []}
+    for refine in (False, True, True, False):
+        rates[refine].append(loop(refine))
+
+    # one batch's refine on the card against the CPU path, and its cost
+    recs = [r for r in imdb if (r.im_h, r.im_w) == EVAL_SIZES[0]][:b]
+    p2 = np.stack([r.p2 for r in recs]).astype(np.float32)
+
+    def on_dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    infer = tester.make_infer(model, cfg.detect_config(), 512, 1760,
+                              torch.bfloat16)
+    p2_d, p2i_d = on_dev(p2), on_dev(np.linalg.inv(p2))
+    dets, valid = infer(
+        on_dev(np.stack([png.read_png(r.image_path) for r in recs]),
+               torch.uint8), on_dev(cfg.image_means), on_dev(cfg.image_stds),
+        on_dev(rois), on_dev(rois_3d), p2_d, p2i_d,
+        on_dev(np.full((b,), 512 / EVAL_SIZES[0][0], np.float32)),
+        on_dev(np.zeros(13)), on_dev(np.ones(13)))
+    host_ms, dev_ms, n_launch = refine_check(dets, valid, p2_d, p2i_d, dev,
+                                             stamp)
+    print(f"options (a): the evaluation loop over phase 12's tree x "
+          f"{OPTION_REPEAT} ({len(long_imdb)} frames), grouped bf16 batch "
+          f"{b}, in turns: without --refine "
+          f"{', '.join(f'{r:.2f}' for r in rates[False])} img/s, with "
+          f"{', '.join(f'{r:.2f}' for r in rates[True])} img/s {stamp}",
+          flush=True)
+    del model, infer, dets, valid
+    torch.cuda.empty_cache()
+
+    # -- (b) photometric jitter through scripts/train_torch.py on phase 13's
+    # tree, warm-started as phase 13's stage 2
+    train = load_script("train_torch")
+    t_root = os.path.join(TRAIN_DIR, "data")
+    warm_dir = os.path.join(TRAIN_DIR, "output", "kitti_3d_warmup")
+    jit_out = os.path.join(TRAIN_DIR, "output_jitter")
+
+    def train_run(distort_prob):
+        """One fresh run of JITTER_STEPS steps; (summary, launches, the
+        total loss of each step)."""
+        shutil.rmtree(jit_out, ignore_errors=True)
+        for n in names:
+            getattr(kernels, n).launches = 0
+        summary = train.main([
+            "--config", "groomed_nms", "--data-root", t_root, "--output",
+            jit_out, "--max-iter", str(JITTER_STEPS), "--set",
+            f"distort_prob={distort_prob}", "--set",
+            f"pretrained={warm_dir!r}", "--set", "do_test=False", "--set",
+            "display=1"])
+        launched = counts()
+        torch.cuda.empty_cache()
+        with open(os.path.join(jit_out, "groomed_nms", "metrics.csv")) as f:
+            lines = f.read().splitlines()
+        col = lines[0].split(",").index("total")
+        return summary, launched, [float(r.split(",")[col])
+                                   for r in lines[1:]]
+
+    # the jittered run beside the same run without jitter, in turns
+    summary, jitter_launches, totals = train_run(0.5)
+    ms = {0.5: [rate_after(summary)[0]], -1.0: []}
+    for p in (-1.0, -1.0, 0.5):
+        ms[p].append(rate_after(train_run(p)[0])[0])
+    _, ips, wait = rate_after(summary)
+    print(f"options (b): train_torch.py --config groomed_nms --set "
+          f"distort_prob=0.5, batch 2, 512x1760 f32, warm-started from phase "
+          f"13's stage 1, {summary['steps']} steps: "
+          f"{', '.join(f'{v:.2f}' for v in ms[0.5])} ms/step after step "
+          f"{RATE_FROM} in two runs (the first {ips:.2f} img/s, host_wait "
+          f"{wait:.2%}), the same runs with distort_prob=-1 in turns "
+          f"{', '.join(f'{v:.2f}' for v in ms[-1.0])}, phase 13's stage 2 "
+          f"{stage2_rate[0]:.2f} ms/step; loss (total) "
+          f"{[round(v, 4) for v in totals]}; launches in training "
+          f"{summary['launches']['train']} {stamp}", flush=True)
+    assert summary["steps"] == JITTER_STEPS and all(np.isfinite(totals))
+    assert jitter_launches == summary["launches"]["train"] == dict(
+        fused_head_scores=0, greedy_nms=0, fused_iou_prune=JITTER_STEPS,
+        group_leaders=JITTER_STEPS), jitter_launches
+
+    # the draws and a jittered batch of two training frames, card against
+    # CPU path, at the steps the run took
+    gcfg = load_config("groomed_nms")
+    frames = torch.from_numpy(np.stack([png.read_png(r.image_path) for r in
+                                        build_imdb(os.path.join(
+                                            t_root, "kitti_split1"),
+                                            "training")[:2]]))
+    mirror = torch.tensor([True, False])
+    means = np.asarray(gcfg.image_means, np.float32)
+    stds = np.asarray(gcfg.image_stds, np.float32)
+    seen = {}
+
+    def keep(state, batch):
+        seen[batch["images"].device.type] = batch["images"]
+
+    scale = torch.from_numpy(stds * 255.0)[None, :, None, None]
+
+    def preprocessed(step, distort_prob):
+        """{device type: the fused preprocess's images of ``step``}."""
+        for device in ("cpu", dev):
+            fuse_preprocess(
+                keep, torch.from_numpy(means).to(device),
+                torch.from_numpy(stds).to(device),
+                target_h=gcfg.crop_size[0], crop_w=gcfg.crop_size[1],
+                distort_prob=distort_prob, rng_seed=gcfg.rng_seed)(
+                    SimpleNamespace(step=step),
+                    {"images_u8": frames.to(device),
+                     "mirror": mirror.to(device)})
+        return ((seen["cuda"].cpu() - seen["cpu"]) * scale).abs().max().item()
+
+    # the resize alone (no jitter), card against CPU path: its own distance
+    own = preprocessed(0, -1.0)
+    x = frames.permute(0, 3, 1, 2).float()
+    worst = distort = 0.0
+    applied, draws_equal = 0, True
+    for step in range(JITTER_STEPS):
+        worst = max(worst, preprocessed(step, 0.5))
+        d = jitter_draws(gcfg.rng_seed, step, 2, 0.5)
+        d_dev = d.to(dev, non_blocking=True)
+        draws_equal &= all(torch.equal(a, c.cpu()) for a, c in zip(d, d_dev))
+        applied += int(d.apply.sum())
+        jit = photometric_distort(x.to(dev), *d_dev[1:]).cpu()
+        distort = max(distort, (jit - photometric_distort(x, *d[1:])).abs()
+                      .max().item())
+    print(f"options (b): the jitter of steps 0-{JITTER_STEPS - 1} on two "
+          f"375x1242 frames, card vs CPU path: draws equal {draws_equal}, "
+          f"{applied} of {2 * JITTER_STEPS} images jittered; "
+          f"photometric_distort max err {distort:.3e}, the jittered batch "
+          f"after the resize {worst:.3e} beside the resize's own {own:.3e}, "
+          f"on the 0-255 scale (tol {JITTER_ATOL_255:g}, beyond the "
+          f"resize's own)", flush=True)
+    assert draws_equal and applied > 0 and distort <= JITTER_ATOL_255
+    assert worst <= own + JITTER_ATOL_255
+
+    # -- (c) the library ops, card against CPU path
+    library_ops_check(dev, stamp)
+    return {"refine": refine_launches, "jitter": jitter_launches,
+            "refine_batch": {"host_ms": host_ms, "device_ms": dev_ms,
+                             "launches": n_launch},
+            "img_s": {"plain": rates[False], "refine": rates[True]}}
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2750,12 +3141,13 @@ def main():
     groomed_test_phase(stamp)
     train_launches = train_phase(stamp)
     eval_phase(dev, flush, stamp)
-    train_entry_phase(dev, stamp)
+    stage2_rate = train_entry_phase(dev, stamp)
     video = video_phase(dev, flush, stamp)
     video_train_phase(dev, stamp)
     export_launches, export_video = export_phase(dev, stamp)
+    options = options_phase(dev, flush, stamp, stage2_rate)
 
-    # -- 17. results ----------------------------------------------------------
+    # -- 18. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,
@@ -2783,7 +3175,9 @@ def main():
          "video": video["fused_head_scores"],
          "export": {"launches": export_launches["fused_head_scores"],
                     "video_launches": export_video["full width f32"][
-                        "fused_head_scores"]}},
+                        "fused_head_scores"]},
+         "options": {"refine_launches":
+                     options["refine"]["fused_head_scores"]}},
         {"name": "greedy_nms", "route": "cuda",
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
@@ -2793,7 +3187,8 @@ def main():
          "library_ms": None, "video": video["greedy_nms"],
          "export": {"launches": export_launches["greedy_nms"],
                     "video_launches": export_video["full width f32"][
-                        "greedy_nms"]}},
+                        "greedy_nms"]},
+         "options": {"refine_launches": options["refine"]["greedy_nms"]}},
         # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
         # block 1 + block 2
         {"name": "dense_block_eval", "route": "cuda",
@@ -2816,7 +3211,9 @@ def main():
          "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"],
          "bound_ms": k3["train"]["bound_ms"],
          "bound_by": k3["train"]["bound_by"], "library_ms": None,
-         "export": {"launches": export_launches["fused_iou_prune"]}},
+         "export": {"launches": export_launches["fused_iou_prune"]},
+         "options": {"jitter_launches":
+                     options["jitter"]["fused_iou_prune"]}},
         # no TPU kernel: the JAX grouping is a lax.while_loop; launches the
         # train loop's, ms on the operator's own input at [8, 512]
         {"name": "group_leaders", "route": "cuda",
@@ -2826,7 +3223,8 @@ def main():
          "ms": group["ms"], "plain_ms": group["plain_ms"],
          "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
          "library_ms": None,
-         "export": {"launches": export_launches["group_leaders"]}},
+         "export": {"launches": export_launches["group_leaders"]},
+         "options": {"jitter_launches": options["jitter"]["group_leaders"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

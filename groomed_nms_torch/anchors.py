@@ -6,7 +6,8 @@ Counterpart of ``groomed_nms_tpu/anchors.py``.  ``learn_anchor_priors``
 matches each GT to its best template with the port's ``pairwise_iou`` (f32
 on the CPU) and averages the matched GTs' 3D columns; ``compute_bbox_stats``
 is the one-pass mean/std of per-image target rows.  The k-means refinement
-(``cluster_anchors``) is off in every shipped config and not ported.  The grid is ordered
+``cluster_anchors`` (numpy) is off in every shipped config
+(``cluster_anchors=0``).  The grid is ordered
 **(h, w, a)**, the natural unroll of an NHWC head output, which is the order
 ``models/rpn_3d.py`` gives its per-anchor rows.
 """
@@ -221,3 +222,83 @@ def compute_bbox_stats(per_image_rows, n_targets):
     var = np.maximum(sq / cnt - means ** 2, 1e-12)
     stds = np.where(total > 1, np.sqrt(var), 1.0)
     return means[None, :], stds[None, :]
+
+
+def _np_iou_corners(a, b):
+    """Pairwise IoU [A, G] of corner boxes, numpy, with +1 pixel widths."""
+    x1 = np.maximum(a[:, None, 0], b[None, :, 0])
+    y1 = np.maximum(a[:, None, 1], b[None, :, 1])
+    x2 = np.minimum(a[:, None, 2], b[None, :, 2])
+    y2 = np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.clip(x2 - x1 + 1, 0, None) * np.clip(y2 - y1 + 1, 0, None)
+    area_a = (a[:, 2] - a[:, 0] + 1) * (a[:, 3] - a[:, 1] + 1)
+    area_b = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+    return inter / (area_a[:, None] + area_b[None, :] - inter)
+
+
+def normalized_gts_for_clustering(imdb, feat_stride, test_scale, lbls,
+                                  ilbls, min_gt_vis=0.99, min_gt_h=0):
+    """The valid GTs of ``imdb`` for ``cluster_anchors``: per record, the 2D
+    boxes scaled by ``scale * test_scale / im_h``, the removed and ignored
+    GTs dropped (``determine_ignores`` with ``use_trunc``), each box
+    re-centred at ``anchor_center(w, h, feat_stride)``, then the record's
+    unscaled 16-column ``bbox_3d`` row.  Returns [G, 20] f64 sorted by 2D
+    height, ascending."""
+    from .data.imdb import determine_ignores
+
+    rows = []
+    for rec in imdb:
+        gts = rec.gts
+        if not gts or len(gts.get("cls", [])) == 0:
+            continue
+        scale = rec.scale * test_scale / rec.im_h
+        igns, rmvs = determine_ignores(gts, lbls, ilbls, min_gt_vis,
+                                       min_gt_h, np.inf, scale,
+                                       use_trunc=True)
+        keep = (~igns) & (~rmvs)
+        if not keep.any():
+            continue
+        bf = gts["bbox_full"][keep] * scale
+        corners = np.stack([bf[:, 0], bf[:, 1],
+                            bf[:, 0] + bf[:, 2] - 1,
+                            bf[:, 1] + bf[:, 3] - 1], axis=1)
+        w = corners[:, 2] - corners[:, 0] + 1
+        h = corners[:, 3] - corners[:, 1] + 1
+        centered = np.stack([anchor_center(wi, hi, feat_stride)
+                             for wi, hi in zip(w, h)])
+        rows.append(np.concatenate(
+            [centered.astype(np.float64), gts["bbox_3d"][keep, :16]],
+            axis=1))
+    if not rows:
+        return np.zeros((0, 20))
+    out = np.concatenate(rows, axis=0)
+    return out[np.argsort(out[:, 3] - out[:, 1] + 1)]
+
+
+def cluster_anchors(anchors, normalized_gts, feat_stride, rounds=50):
+    """Refine anchors by k-means with 2D-IoU argmax assignment, with the
+    reference's quirks: exactly ``rounds`` (50) rounds, the final anchors
+    returned; the 3D prior columns 4..8 refilled from the GT rows' columns
+    6..10 (cz2d, w3d, h3d, l3d and alpha, not rotY); the decomp-alpha and
+    velocity columns (9+) left as they are; an anchor that attracts no GT
+    raises ``ValueError``.
+
+    ``anchors`` [A, >=9]; ``normalized_gts`` [G, 20] from
+    ``normalized_gts_for_clustering``.  Returns a refined f64 copy.
+    """
+    anch = np.array(anchors, np.float64, copy=True)
+    gts = np.asarray(normalized_gts, np.float64)
+    if gts.shape[0] == 0:
+        return anch
+    gw = gts[:, 2] - gts[:, 0] + 1
+    gh = gts[:, 3] - gts[:, 1] + 1
+    for _ in range(rounds):
+        assign = _np_iou_corners(anch[:, :4], gts[:, :4]).argmax(axis=0)
+        for a in range(anch.shape[0]):
+            m = assign == a
+            if not m.any():
+                raise ValueError(f"Non-used anchor #{a} found")
+            anch[a, :4] = anchor_center(gw[m].mean(), gh[m].mean(),
+                                        feat_stride)
+            anch[a, 4:9] = gts[m, 6:11].mean(axis=0)
+    return anch

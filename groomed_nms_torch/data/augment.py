@@ -9,6 +9,10 @@ Resize semantics: padding is added before normalisation.
 ``preprocess_images`` takes a batch of one size; ``preprocess_images_dynamic``
 takes frames of several sizes, edge-padded into one buffer
 (``pad_image_edge``), and resamples each by its own scale.
+``preprocess_images_train`` adds the photometric jitter of training
+(brightness, contrast, saturation) after the flip; its randomness is drawn
+apart from it (``photometric_draws``), so that any stream of draws can feed
+it.
 
 The label path of the train loader runs on the host in numpy, copied from
 the JAX module: ``scale_labels`` scales the 2D boxes and projected centres
@@ -19,12 +23,22 @@ for a horizontal flip.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .kitti import decompose_alpha, rot_y_to_alpha
+
+
+def _flipped(images, mirror):
+    """uint8 NHWC frames -> an f32 NCHW view (NHWC memory), the images of
+    ``mirror`` flipped horizontally."""
+    x = images.permute(0, 3, 1, 2).float()
+    if mirror is not None:
+        x = torch.where(mirror[:, None, None, None], x.flip(-1), x)
+    return x
 
 
 def preprocess_images(images, mirror, means, stds, *, target_h, crop_w,
@@ -40,12 +54,74 @@ def preprocess_images(images, mirror, means, stds, *, target_h, crop_w,
     bilinear method does (its triangle kernel widens with the scale only
     when downsampling); upsampling is plain half-pixel bilinear.
     """
-    b, h0, w0, _ = images.shape
+    return _resize_normalize(_flipped(images, mirror), means, stds,
+                             target_h, crop_w, out_dtype)
+
+
+class PhotometricDraws(NamedTuple):
+    """The randomness of one batch's photometric jitter: which images are
+    jittered ([B] bool) and each image's brightness, contrast and
+    saturation factor ([B] each)."""
+    apply: torch.Tensor
+    f_b: torch.Tensor
+    f_c: torch.Tensor
+    f_s: torch.Tensor
+
+    def to(self, device, non_blocking=False):
+        return PhotometricDraws(*(t.to(device, non_blocking=non_blocking)
+                                  for t in self))
+
+
+def photometric_draws(generator, b, distort_prob, brightness=0.2,
+                      contrast=0.2, saturation=0.2):
+    """Draw one batch's jitter on the CPU from ``generator``: 4 * ``b``
+    uniforms, an image jittered when its first is <= ``distort_prob``, its
+    factors uniform in [1 - m, 1 + m] for each magnitude m."""
+    u = torch.rand((4, b), generator=generator, dtype=torch.float32)
+    lo = torch.tensor([1 - brightness, 1 - contrast, 1 - saturation])
+    hi = torch.tensor([1 + brightness, 1 + contrast, 1 + saturation])
+    f = lo[:, None] + u[1:] * (hi - lo)[:, None]
+    return PhotometricDraws(u[0] <= distort_prob, *f)
+
+
+def photometric_distort(images, f_b, f_c, f_s):
+    """Brightness, contrast and saturation jitter of float images [B, 3,
+    H, W] on the 0-255 scale, one factor of each per image ([B]), in JAX's
+    order: brightness; contrast about the image's mean over (C, H, W);
+    saturation about each pixel's channel mean; clipped to [0, 255]."""
+    x = images * f_b[:, None, None, None]
+    mean = x.mean((1, 2, 3), keepdim=True)
+    x = (x - mean) * f_c[:, None, None, None] + mean
+    gray = x.mean(1, keepdim=True)
+    x = (x - gray) * f_s[:, None, None, None] + gray
+    return x.clamp(0.0, 255.0)
+
+
+def preprocess_images_train(images, mirror, means, stds, draws, *, target_h,
+                            crop_w, distort_prob, out_dtype=None):
+    """``preprocess_images`` with photometric jitter after the flip and
+    before the resize: the images of ``draws.apply`` are jittered by
+    ``photometric_distort`` with ``draws``' factors (on the images'
+    device).  ``distort_prob <= 0`` is ``preprocess_images`` itself and
+    reads no draws."""
+    if distort_prob <= 0:
+        return preprocess_images(images, mirror, means, stds,
+                                 target_h=target_h, crop_w=crop_w,
+                                 out_dtype=out_dtype)
+    x = _flipped(images, mirror)
+    x = torch.where(draws.apply[:, None, None, None],
+                    photometric_distort(x, draws.f_b, draws.f_c, draws.f_s),
+                    x)
+    return _resize_normalize(x, means, stds, target_h, crop_w, out_dtype)
+
+
+def _resize_normalize(x, means, stds, target_h, crop_w, out_dtype):
+    """Float NCHW frames on the 0-255 scale -> the resize to ``target_h``
+    (width by the same factor), the crop or zero-pad to ``crop_w``, /255 and
+    the channel statistics, ``channels_last``."""
+    h0, w0 = x.shape[-2:]
     scale = target_h / h0
     new_w = int(round(w0 * scale))
-    x = images.permute(0, 3, 1, 2).float()        # NCHW view, NHWC memory
-    if mirror is not None:
-        x = torch.where(mirror[:, None, None, None], x.flip(-1), x)
     x = F.interpolate(x, size=(target_h, new_w), mode="bilinear",
                       align_corners=False,
                       antialias=target_h < h0 or new_w < w0)

@@ -15,10 +15,14 @@ copies each batch to the card on its own stream (``device_prefetch``); the
 detections come back through pinned buffers with an event per batch, and at
 most 3 batches are in flight before the oldest is written.
 
+``refine=True`` runs the hill-climb of ``inference.refine_detections`` on
+each batch's final rows on the device, with each record's original-frame
+P2, before the copy to the host.
+
 Left out of the JAX loop: the device mesh (one card here; data parallelism
-is ROADMAP queue 1, item 10) and the per-model compiled-graph cache
-(PyTorch runs eagerly).  ``refine=True`` (ROADMAP queue 1, item 12) and
-``render > 0`` (matplotlib and Pillow) raise ``ValueError``.
+is ROADMAP queue 1, item 6) and the per-model compiled-graph cache
+(PyTorch runs eagerly).  ``render > 0`` (matplotlib and Pillow) raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -35,8 +39,8 @@ import torch
 
 from ..data.augment import (pad_image_edge, preprocess_images,
                             preprocess_images_dynamic)
-from ..inference import (clip_detections, im_detect_3d, rpn_outputs_dict,
-                         write_kitti_detections)
+from ..inference import (clip_detections, im_detect_3d, refine_detections,
+                         rpn_outputs_dict, write_kitti_detections)
 
 MAX_IN_FLIGHT = 3                 # batches queued before the oldest is written
 DECODE_THREADS = 8
@@ -102,7 +106,8 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
     ``model`` is an ``RPN3D`` (or a ``FastEvalRPN3D``) on the device that
     runs the loop; ``cfg.compute_dtype`` "bfloat16" runs it under bf16
     autocast.  With ``raw_cache_dir``, decoded frames are cached there as
-    ``.npy`` (``data.pipeline.load_image_cached``).  ``loop_stats``, a dict,
+    ``.npy`` (``data.pipeline.load_image_cached``).  ``refine`` runs
+    ``refine_detections`` on each batch's rows.  ``loop_stats``, a dict,
     receives the loop's ``images``, ``wall_s`` and, on a CUDA device,
     ``busy_s``: the time the card had a batch in flight, from CUDA events
     around each batch.  Returns the evaluator's AP dict
@@ -112,9 +117,6 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
     from ..data.pipeline import device_prefetch, load_image_cached
     from .kitti_eval import evaluate_kitti_results_verbose
 
-    if refine:
-        raise ValueError("refine=True needs the hill-climb refinement "
-                         "(ops/refine.py), ROADMAP queue 1, item 12")
     if render:
         raise ValueError("render > 0 needs matplotlib and Pillow, which the "
                          "port does not use (ROADMAP: left out of the eval "
@@ -216,6 +218,9 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
         dets, valid = infer(imgs, means_img, stds_img, rois_d, rois_3d_d, p2,
                             p2_inv, scale, means_d, stds_d,
                             src_hw=hw if single else None)
+        if refine:
+            with torch.inference_mode():
+                dets = refine_detections(dets, valid, p2, p2_inv)
         if cuda:
             dets_h = torch.empty(dets.shape, dtype=dets.dtype,
                                  pin_memory=True)

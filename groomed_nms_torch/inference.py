@@ -14,7 +14,8 @@ Detection row layout (17 columns, original image scale):
    w3d, h3d, l3d, alpha,
    x3d, y3d, z3d, ry3d]        (camera frame; y3d at cuboid *center*)
 The KITTI writer re-grounds y3d += h3d/2.  ``write_kitti_tracks`` writes the
-video model's tracks (``models/video.py``).
+video model's tracks (``models/video.py``).  ``refine_detections`` is the
+``--refine`` hill-climb of final rows (``ops/refine.py``).
 """
 
 from __future__ import annotations
@@ -25,11 +26,12 @@ import numpy as np
 import torch
 
 from .models.rpn_3d import N_BOX2D
-from .ops.boxes import bbox_transform_inv
-from .ops.geometry import (alpha_to_rot_y, get_corners_of_cuboid,
-                           rot_y_to_alpha, snap_to_pi)
+from .ops.boxes import bbox_transform_inv, corners_to_xywh
+from .ops.geometry import (alpha_to_rot_y, backproject_2d_points,
+                           get_corners_of_cuboid, rot_y_to_alpha, snap_to_pi)
 from .ops.groomed_nms import _rows, groomed_nms_boxes
 from .ops.kernels import fused_head_scores, greedy_nms
+from .ops.refine import hill_climb
 
 
 @dataclass(frozen=True)
@@ -251,6 +253,44 @@ def rpn_outputs_dict(out):
     """RPNOutputs -> the outputs dict ``im_detect_3d`` reads."""
     return {"fused_raw": out.fused_raw, "accept_prob": out.accept_prob,
             "uncertainty": out.uncertainty}
+
+
+def detect_batch(model, images, rois, rois_3d, p2, p2_inv, scale_factor,
+                 bbox_means, bbox_stds, cfg: DetectConfig):
+    """Inference for one preprocessed image batch: the model's forward in
+    eval mode, without gradients, then ``im_detect_3d``.  ``images`` [B, 3,
+    H, W] on the model's device; the model is put in eval mode."""
+    model.eval()
+    with torch.no_grad():
+        out = model(images)
+        return im_detect_3d(rpn_outputs_dict(out), rois, rois_3d, p2, p2_inv,
+                            scale_factor, bbox_means, bbox_stds, cfg)
+
+
+def refine_detections(dets, valid, p2, p2_inv):
+    """Post-hoc z / ry hill-climb of final detections (``ops.refine``).
+
+    ``dets`` [B, K, 17] (``decode_detections``' layout), ``valid`` [B, K]
+    bool, ``p2`` / ``p2_inv`` [B, 4, 4] of the original image frame (the
+    rows' x2d, y2d and boxes are original-frame).  Returns new rows with
+    z2d, alpha, x3d, y3d, z3d and ry3d refined: the camera centre is
+    re-derived from the refined depth and the projected centre, alpha from
+    the refined yaw.  Only improving steps are taken; rows masked out by
+    ``valid``, and rows whose starting projection is invalid, keep their
+    inputs.  No host synchronisation.
+    """
+    x2d, y2d, z2d = dets[..., 6], dets[..., 7], dets[..., 8]
+    ry3d = dets[..., 16]
+    z_new, r_new, _ = hill_climb(p2, p2_inv, corners_to_xywh(dets[..., :4]),
+                                 x2d, y2d, z2d, dets[..., 9], dets[..., 10],
+                                 dets[..., 11], ry3d)
+    z_new = torch.where(valid, z_new, z2d)
+    r_new = torch.where(valid, r_new, ry3d)
+    x3d, y3d, z3d = backproject_2d_points(p2_inv, x2d, y2d, z_new)
+    alpha = rot_y_to_alpha(r_new, z3d, x3d)
+    cols = torch.stack([z_new, alpha, x3d, y3d, z3d, r_new], dim=-1)
+    return torch.cat([dets[..., :8], cols[..., :1], dets[..., 9:12],
+                      cols[..., 1:]], dim=-1)
 
 
 def clip_detections(dets, im_w, im_h):

@@ -1,4 +1,5 @@
-"""Build and load the native code of ``groomed_nms_torch/csrc``.
+"""Build and load the native code of ``groomed_nms_torch/csrc``, and the
+repository's backend-free C++ NMS oracle ``eval/cpu_nms.cpp``.
 
 Each source becomes a shared library with a plain C interface under
 ``build/groomed_nms_torch/`` at the checkout's root, at first use; ``ctypes``
@@ -20,6 +21,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
+EVAL_DIR = Path(__file__).resolve().parents[2] / "eval"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "groomed_nms_torch"
 # -fmad=false and no fast math: no fused multiply-add, IEEE division, so a
 # kernel's float arithmetic rounds op by op as its plain PyTorch version's
@@ -48,11 +50,12 @@ def _host_cxx():
         if found:
             return found
     raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the PNG "
-                       "unfilter needs one")
+                       "unfilter and the C++ NMS oracle need one")
 
 
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into a shared library; return its path.
+    """Compile ``csrc/<source>`` (or the absolute path ``source``) into a
+    shared library; return its path.
 
     A ``.cu`` source goes to ``nvcc`` with ``FLAGS``, a ``.cpp`` source to
     the host compiler with ``HOST_FLAGS``.  The hash covers the source, the
@@ -137,4 +140,16 @@ def png_unfilter_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.png_unfilter.argtypes = [p, p, i, i, i]
     lib.png_unfilter.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def cpu_nms_lib():
+    """The C++ greedy-NMS oracle (``eval/cpu_nms.cpp``, shared with the JAX
+    package) with its C entry's signature declared."""
+    lib = ctypes.CDLL(str(build(EVAL_DIR / "cpu_nms.cpp")))
+    fp, i32 = ctypes.POINTER(ctypes.c_float), ctypes.c_int32
+    lib.greedy_nms.argtypes = [fp, i32, ctypes.c_float, ctypes.c_float,
+                               ctypes.POINTER(i32)]
+    lib.greedy_nms.restype = i32
     return lib

@@ -10,6 +10,22 @@ from __future__ import annotations
 import torch
 
 
+def xywh_to_corners(box):
+    """[..., 4] [x, y, w, h] -> [x1, y1, x2, y2], inclusive pixels:
+    ``x2 = x + w - 1``."""
+    return torch.stack([box[..., 0], box[..., 1],
+                        box[..., 0] + box[..., 2] - 1,
+                        box[..., 1] + box[..., 3] - 1], dim=-1)
+
+
+def corners_to_xywh(box):
+    """[..., 4] [x1, y1, x2, y2] -> [x, y, w, h], inclusive pixels:
+    ``w = x2 - x1 + 1``."""
+    return torch.stack([box[..., 0], box[..., 1],
+                        box[..., 2] - box[..., 0] + 1,
+                        box[..., 3] - box[..., 1] + 1], dim=-1)
+
+
 def center_size(box):
     """(ctr_x, ctr_y, w, h) of corner boxes (inclusive convention)."""
     w = box[..., 2] - box[..., 0] + 1.0

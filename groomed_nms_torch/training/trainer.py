@@ -17,7 +17,8 @@
   autocast when asked), ``rpn_3d_loss`` in f32, backward, optimizer step.
   ``make_video_train_step`` is the same step for ``VideoRPN3D`` on clips,
   the loss on each clip's current frame.
-* ``fuse_preprocess``: uint8 frames (or clips) + mirror flags -> the step.
+* ``fuse_preprocess``: uint8 frames (or clips) + mirror flags -> the step,
+  with the photometric jitter keyed by the step (``jitter_draws``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..data.augment import preprocess_images
+from ..data.augment import (PhotometricDraws, photometric_draws,
+                            preprocess_images, preprocess_images_train)
 from ..losses.rpn_3d import GTBatch, LossConfig, UncertaintyState, rpn_3d_loss
 
 SOLVERS = ("sgd", "adam", "adamax")
@@ -290,8 +292,20 @@ def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
     return train_step
 
 
+def jitter_draws(rng_seed, step, b, distort_prob):
+    """The photometric jitter's draws of train step ``step``, from a CPU
+    generator seeded with ``(rng_seed + 1, step)`` mixed into one 32-bit
+    seed (the CPU generator keeps 32 bits of its seed): a function of the
+    seed and the step alone, so a resumed run draws what an uninterrupted
+    one does (JAX folds the step into ``PRNGKey(rng_seed + 1)``; the streams
+    differ, their keying is the same)."""
+    seed = np.random.SeedSequence([rng_seed + 1, int(step)]).generate_state(1)
+    gen = torch.Generator().manual_seed(int(seed[0]))
+    return photometric_draws(gen, b, distort_prob)
+
+
 def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
-                    distort_prob=0.0, out_dtype=None, video=False):
+                    distort_prob=0.0, rng_seed=0, out_dtype=None, video=False):
     """Fold the device-side preprocess into the step: the returned
     ``fused(state, raw)`` takes the loader's batch, ``{'images_u8': [B, H0,
     W0, 3] uint8, 'mirror': [B] bool, **GTBatch fields}``, resizes, crops or
@@ -299,27 +313,39 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
     ``out_dtype`` when given), and runs ``step_fn``.  ``image_means`` /
     ``image_stds`` are 3-vectors on the frames' device.
 
+    With ``distort_prob > 0`` the frames get the photometric jitter of
+    ``preprocess_images_train`` with the draws ``jitter_draws`` makes for
+    ``rng_seed`` and ``state.step``, drawn on the CPU and copied to the
+    frames' device without blocking.
+
     With ``video`` the frames are clips [B, F, H0, W0, 3]
     (``VideoTrainLoader``): preprocessed as B*F frames with each sample's
     mirror flag repeated for its F frames (a mirrored sample flips its
-    whole clip), then shaped [B, F, 3, H, W].  Photometric jitter
-    (``distort_prob > 0``) is not ported.
+    whole clip), then shaped [B, F, 3, H, W].  Clips are not jittered, as
+    in JAX.
     """
-    if distort_prob > 0:
-        raise NotImplementedError(
-            "distort_prob > 0 (photometric jitter) is not ported to "
-            "groomed_nms_torch (ROADMAP.md, queue 1)")
-
     def fused(state, raw):
         u8, mirror = raw["images_u8"], raw["mirror"]
         if video:
             b, f = u8.shape[:2]
-            u8, mirror = u8.flatten(0, 1), mirror.repeat_interleave(f)
-        images = preprocess_images(u8, mirror, image_means, image_stds,
-                                   target_h=target_h, crop_w=crop_w,
-                                   out_dtype=out_dtype)
-        if video:
-            images = images.unflatten(0, (b, f))
+            images = preprocess_images(
+                u8.flatten(0, 1), mirror.repeat_interleave(f), image_means,
+                image_stds, target_h=target_h, crop_w=crop_w,
+                out_dtype=out_dtype).unflatten(0, (b, f))
+        elif distort_prob > 0:
+            draws = jitter_draws(rng_seed, state.step, u8.shape[0],
+                                 distort_prob)
+            if u8.is_cuda:
+                draws = PhotometricDraws(*(t.pin_memory() for t in draws))
+            images = preprocess_images_train(
+                u8, mirror, image_means, image_stds,
+                draws.to(u8.device, non_blocking=True), target_h=target_h,
+                crop_w=crop_w, distort_prob=distort_prob,
+                out_dtype=out_dtype)
+        else:
+            images = preprocess_images(u8, mirror, image_means, image_stds,
+                                       target_h=target_h, crop_w=crop_w,
+                                       out_dtype=out_dtype)
         gt = {k: v for k, v in raw.items() if k not in ("images_u8", "mirror")}
         return step_fn(state, dict(images=images, **gt))
 

@@ -11,7 +11,9 @@ run's ``anchors.npz``, decodes the split's PNGs, runs batched inference
 (``eval.tester.test_kitti_3d``), writes KITTI txt files and scores them with
 the C++ evaluator.  It runs on the CUDA card unless ``--device cpu`` is
 given, and raises when CUDA is absent or the PNG unfilter does not build.
-``--set compute_dtype=bfloat16`` runs the model under bf16 autocast.
+``--set compute_dtype=bfloat16`` runs the model under bf16 autocast;
+``--refine`` refines each detection's depth and yaw by the hill-climb of
+``inference.refine_detections``.
 """
 
 import argparse
@@ -52,7 +54,8 @@ def parse_args(argv=None):
     ap.add_argument("--render", type=int, default=0,
                     help="not ported: needs matplotlib and Pillow")
     ap.add_argument("--refine", action="store_true",
-                    help="not ported: ROADMAP queue 1, item 12")
+                    help="refine z and yaw of the final detections by "
+                         "projection consistency (the hill-climb)")
     ap.add_argument("--cache-images", action="store_true",
                     help="mmap-cache decoded val images in the split's "
                          ".decoded_cache")
@@ -72,9 +75,6 @@ def main(argv=None):
     if args.render:
         raise ValueError("--render needs matplotlib and Pillow, which the "
                          "port does not use")
-    if args.refine:
-        raise ValueError("--refine needs ops/refine.py, ROADMAP queue 1, "
-                         "item 12")
 
     import torch
 
@@ -146,7 +146,7 @@ def main(argv=None):
     result = test_kitti_3d(
         cfg, model, rois, rois_3d, means, stds, imdb, results_dir,
         gt_dir=gt_dir, batch_size=args.batch, log_fn=log.info,
-        skip_eval=args.skip_eval or sharded,
+        skip_eval=args.skip_eval or sharded, refine=args.refine,
         raw_cache_dir=os.path.join(root, args.split, ".decoded_cache")
         if args.cache_images else None)
 

@@ -167,6 +167,7 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
                             target_h=cfg.crop_size[0],
                             crop_w=cfg.crop_size[1],
                             distort_prob=cfg.distort_prob,
+                            rng_seed=cfg.rng_seed,
                             out_dtype=None if param_dtype == torch.float32
                             else param_dtype, video=video)
     state = TrainState(model, optimizer, UncertaintyState.init(device))

@@ -9,6 +9,7 @@ on a machine without JAX it runs on its own:
 
 import copy
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -1088,3 +1089,119 @@ def test_tiny_artifact_on_cuda_matches_its_live_closure(cuda, groomed):
     torch.testing.assert_close(got_d, want_d, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         loaded(*(a.cpu() for a in args))
+
+
+def test_refine_detections_on_cuda_matches_cpu(cuda):
+    """The hill-climb of final rows card against CPU path in f64, with no
+    host synchronisation on the card: the same rows kept, every number
+    within 1e-9 of 1 + |x|."""
+    from groomed_nms_torch.inference import refine_detections
+
+    rs = np.random.default_rng(2)
+    b, k = 4, 40
+    d = np.zeros((b, k, 17))
+    c = rs.uniform([0, 100], [1200, 300], (b, k, 2))
+    wh = rs.uniform(20, 200, (b, k, 2))
+    d[..., :2], d[..., 2:4] = c - wh / 2, c + wh / 2
+    d[..., 6:8] = c + rs.normal(0, 8, (b, k, 2))
+    d[..., 8] = rs.uniform(1, 60, (b, k))
+    d[..., 9:12] = rs.uniform([1.4, 1.4, 3.0], [1.9, 1.8, 4.5], (b, k, 3))
+    d[..., 16] = rs.uniform(-np.pi, np.pi, (b, k))
+    p2 = np.tile(np.eye(4), (b, 1, 1))
+    p2[:, 0, 0] = p2[:, 1, 1] = 720.0
+    p2[:, 0, 2], p2[:, 1, 2], p2[:, 0, 3] = 610.0, 175.0, 45.0
+    args = [torch.from_numpy(a) for a in
+            (d, rs.uniform(size=(b, k)) > 0.2, p2, np.linalg.inv(p2))]
+    want = refine_detections(*args)
+    gpu = [a.to(cuda) for a in args]
+    refine_detections(*gpu)                  # the signs' constants copied
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = refine_detections(*gpu)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = got.cpu()
+    assert torch.equal((got == args[0]).all(-1), (want == args[0]).all(-1))
+    assert ((got - want).abs() / (1 + want.abs())).max() <= 1e-9
+
+
+def test_jitter_on_cuda_matches_cpu(cuda):
+    """fuse_preprocess with photometric jitter on the card: the images of
+    the CPU path within 1e-3 on the 0-255 scale beyond the resize's own
+    card-vs-CPU distance, for each of four steps' draws."""
+    from groomed_nms_torch.training.trainer import fuse_preprocess
+
+    rs = np.random.default_rng(3)
+    u8 = torch.from_numpy(rs.integers(0, 256, (4, 96, 320, 3), np.uint8))
+    mirror = torch.tensor([True, False, True, False])
+    means = torch.tensor([0.485, 0.456, 0.406])
+    stds = torch.tensor([0.229, 0.224, 0.225])
+    seen = {}
+
+    def run(step, p):
+        for dev in ("cpu", cuda):
+            fuse_preprocess(lambda s, b: seen.__setitem__(dev, b["images"]),
+                            means.to(dev), stds.to(dev), target_h=128,
+                            crop_w=416, distort_prob=p, rng_seed=5)(
+                SimpleNamespace(step=step), {"images_u8": u8.to(dev),
+                                             "mirror": mirror.to(dev)})
+        scale = (stds * 255)[None, :, None, None]
+        return ((seen[cuda].cpu() - seen["cpu"]) * scale).abs().max().item()
+
+    own = run(0, -1.0)
+    for step in range(4):
+        assert run(step, 0.5) <= own + 1e-3
+
+
+@pytest.mark.parametrize("method", ["linear", "gaussian", "hard"])
+def test_soft_nms_and_greedy_nms_on_cuda_match_cpu(cuda, method):
+    from groomed_nms_torch.ops import nms
+
+    rs = np.random.default_rng(4)
+    xy = rs.uniform(0, 600, (300, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rs.uniform(20, 150, (300, 2))], 1).astype(np.float32))
+    scores = torch.from_numpy(rs.uniform(0.01, 1, 300).astype(np.float32))
+    kw = dict(nms_threshold=0.3, method=method, score_threshold=0.05)
+    got = nms.soft_nms(boxes.to(cuda), scores.to(cuda), **kw)
+    want = nms.soft_nms(boxes, scores, **kw)
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-6)
+    before = kernels.greedy_nms.launches
+    keep = nms.greedy_nms(boxes.to(cuda), scores.to(cuda))
+    assert kernels.greedy_nms.launches == before + 1
+    assert torch.equal(keep.cpu(), nms.greedy_nms(boxes, scores))
+
+
+def test_roi_align_and_losses_on_cuda_match_cpu(cuda):
+    from groomed_nms_torch.losses import ranknet_loss
+    from groomed_nms_torch.losses.custom_loss import custom_mse
+    from groomed_nms_torch.ops.roi_align import roi_align
+
+    rs = np.random.default_rng(5)
+    feats = torch.from_numpy(rs.normal(size=(32, 110, 64)).astype(np.float32))
+    xy = rs.uniform(0, [1700, 480], (16, 2))
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + rs.uniform(16, 400, (16, 2))], 1).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        f = feats.to(dev).detach().requires_grad_()
+        y = roi_align(f, rois.to(dev), output_size=(7, 7),
+                      spatial_scale=1 / 16, reduction="max")
+        y.square().sum().backward()
+        out[str(dev)] = (y.detach().cpu(), f.grad.cpu())
+    for g, w in zip(out[str(cuda)], out["cpu"]):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    s = torch.from_numpy(rs.normal(0, 2, 64).astype(np.float32))
+    rel = torch.from_numpy(rs.integers(0, 4, 64).astype(np.float32))
+    for fn in (lambda x, d: ranknet_loss(x, rel.to(d)),
+               lambda x, d: custom_mse(x, rel.to(d), 2.0)):
+        res = []
+        for dev in ("cpu", cuda):
+            x = s.to(dev).detach().requires_grad_()
+            v = fn(x, dev)
+            v.backward()
+            res.append((v.detach().cpu(), x.grad.cpu()))
+        for g, w in zip(res[1], res[0]):
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)

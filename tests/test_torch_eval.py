@@ -172,13 +172,28 @@ def test_kitti_3d_refuses_a_stale_imdb(split, tmp_path):
                              batch_size=2, skip_eval=True)
 
 
-@pytest.mark.parametrize("kwargs,msg", [(dict(refine=True), "item 12"),
-                                        (dict(render=1), "matplotlib")])
-def test_kitti_3d_refuses_what_is_not_ported(tmp_path, kwargs, msg):
+@pytest.mark.parametrize("kwargs,msg", [(dict(refine=True), None),
+                                        (dict(render=1), "matplotlib")],
+                         ids=["refine_runs", "render_refused"])
+def test_kitti_3d_refuses_what_is_not_ported(split, tmp_path, kwargs, msg):
+    """``render > 0`` (matplotlib and Pillow) is refused; ``refine=True``,
+    ported, runs and writes a txt file a frame (its rows against JAX's:
+    ``test_torch_refine.py``)."""
     cfg = config.load_config("tiny_synthetic")
-    with pytest.raises(ValueError, match=msg):
-        tester.test_kitti_3d(cfg, RPN3D(cfg.rpn_config(NUM_ANCHORS)), None,
-                             None, None, None, [], str(tmp_path), **kwargs)
+    model = RPN3D(cfg.rpn_config(NUM_ANCHORS))
+    if msg is not None:
+        with pytest.raises(ValueError, match=msg):
+            tester.test_kitti_3d(cfg, model, None, None, None, None, [],
+                                 str(tmp_path), **kwargs)
+        return
+    init_weights(model, torch.Generator().manual_seed(0))
+    rois, rois_3d = _rois(_anchors(np.random.default_rng(0)))
+    imdb = build_imdb(split, "validation")
+    tester.test_kitti_3d(cfg, model, rois, rois_3d, np.zeros(13),
+                         np.ones(13), imdb, str(tmp_path), batch_size=2,
+                         skip_eval=True, **kwargs)
+    assert sorted(os.listdir(tmp_path / "data")) == sorted(
+        r.id + ".txt" for r in imdb)
 
 
 def _run_dir(out_root, seed=0):
@@ -204,8 +219,8 @@ def _script(*args):
 
 def test_evaluate_torch_script_on_the_cpu(tmp_path):
     """The entry point end to end: checkpoint and anchors restored, every
-    frame written, the C++ evaluator's AP table printed; --refine and a
-    missing CUDA device refused."""
+    frame written, the C++ evaluator's AP table printed; with --refine too;
+    a missing CUDA device refused."""
     data = tmp_path / "data"
     _tree(str(data / "kitti_split1"), n=4, seed=5)
     _run_dir(str(tmp_path / "out"))
@@ -221,8 +236,11 @@ def test_evaluate_torch_script_on_the_cpu(tmp_path):
     assert txts == [f"{i:06d}.txt" for i in range(4)]
     assert all((res / "data" / t).stat().st_size for t in txts)
     assert (res / "stats_car_detection.txt").exists()
-    bad = _script(*args, "--device", "cpu", "--refine")
-    assert bad.returncode != 0 and "item 12" in bad.stderr
+    refined = _script(*args, "--device", "cpu", "--refine", "--skip-eval",
+                      "--set", "score_thres=0.0")
+    assert refined.returncode == 0, refined.stderr[-3000:]
+    res = tmp_path / "out" / "tiny_synthetic" / "results" / "results_latest"
+    assert sorted(os.listdir(res / "data")) == txts
     if not torch.cuda.is_available():
         bad = _script(*args)
         assert bad.returncode != 0 and "CUDA is not available" in bad.stderr

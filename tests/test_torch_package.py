@@ -30,11 +30,15 @@ def test_package_imports_without_jax():
         "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'triton', 'PIL', "
         "'matplotlib'))\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 24
+    mods = set(out.stdout.split())
+    assert len(mods) >= 24
+    assert {f"groomed_nms_torch.{m}" for m in (
+        "ops.refine", "ops.nms", "ops.roi_align", "ops.iou3d_exact",
+        "losses.ranknet", "losses.custom_loss")} <= mods
 
 
 @pytest.mark.parametrize("script,argv", [

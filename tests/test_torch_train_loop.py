@@ -611,16 +611,25 @@ def test_train_torch_script_on_the_cpu(tree, tmp_path):
 
 
 def test_train_torch_refusals(tree, tmp_path):
-    """No CUDA device without --device cpu, and photometric jitter
-    (``distort_prob > 0``), not ported."""
+    """No CUDA device without --device cpu is refused; photometric jitter
+    (``distort_prob > 0``), ported, trains: finite stats and moved
+    weights."""
     script = _train_torch()
     base = ["--data-root", tree, "--output", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             script.main(["--config", "tiny_synthetic", *base])
-    with pytest.raises(NotImplementedError, match="distort_prob"):
-        script.main(["--config", "tiny_synthetic", "--device", "cpu",
-                     "--set", "distort_prob=0.5", *base])
+    summary = script.main(["--config", "tiny_synthetic", "--device", "cpu",
+                           "--set", "distort_prob=0.5", "--set",
+                           "do_test=False", "--set", "display=1",
+                           "--max-iter", "2", *base])
+    assert summary["steps"] == 2 and summary["step"] == 2
+    run = os.path.join(str(tmp_path), "tiny_synthetic")
+    with open(os.path.join(run, "metrics.csv")) as f:
+        rows = f.read().splitlines()
+    col = rows[0].split(",").index("total")
+    assert len(rows) == 3
+    assert all(np.isfinite(float(r.split(",")[col])) for r in rows[1:])
 
 
 UN_STAGE = ("name='tiny_un'", "model='rpn_3d_un'", "has_un=True",

@@ -339,9 +339,15 @@ def test_fuse_preprocess_feeds_the_step():
     assert seen["images"].shape == (2, 3, 64, 128)
     assert torch.equal(seen["images"][0], seen["images"][0])
     assert set(seen) == {"images", "gts_2d"}
-    with pytest.raises(NotImplementedError, match="distort_prob"):
-        fuse_preprocess(step, None, None, target_h=64, crop_w=128,
-                        distort_prob=0.5)
+    plain = seen["images"]
+    jittered = fuse_preprocess(step, torch.tensor([0.485, 0.456, 0.406]),
+                               torch.tensor([0.229, 0.224, 0.225]),
+                               target_h=64, crop_w=128, distort_prob=1.0)
+    jittered(TrainState(None, None, None), {
+        "images_u8": u8, "mirror": torch.tensor([True, False]),
+        "gts_2d": torch.zeros(2, 1, 4)})
+    assert seen["images"].shape == plain.shape
+    assert not torch.isclose(seen["images"], plain).flatten(1).all(1).any()
 
 
 # ---------------------------------------------------------------------------
