@@ -194,23 +194,57 @@ Phases, in order; any failure raises and exits non-zero:
                 a [32, 110, 256] map with 64 rois (values and feature
                 gradients), ranknet_loss and custom_mse (values and
                 gradients), card against CPU path;
- 18. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+ 18. parallel -- data parallelism (groomed_nms_torch/parallel): (a)
+                dryrun_multichip(2) on the card (two ranks sharing it
+                through gloo): the still-image step with the fused
+                preprocess and jitter, 1-vs-2 parity, the video step, the
+                sharded evaluation, K3 and the grouping once a step and K1
+                and K2 once a batch on each rank; (b) the tiny GrooMeD step
+                of two ranks sharing the card against one process in f64,
+                every tensor within DP_PARITY_REL of its max and the ranks'
+                parameters and running statistics identical, one process
+                on the card against the CPU path by phase 13's tiny-loop
+                rule; (c) scripts/train_torch.py as stage 2 (groomed_nms,
+                f32, 512x1760, global batch DP_BATCH, warm-started from
+                phase 13's stage 1 on its tree), DP_STEPS steps with one
+                rank on nccl (in this process) and with two ranks sharing
+                the card (torchrun, gloo, the last DP_PROFILED steps under
+                torch.profiler): ms/step,
+                img/s, host_wait and peak memory a rank, K3 and the
+                grouping once a step a rank, the collectives a step with
+                their device and host ms, finite losses, identical
+                parameters on the ranks, one checkpoint a run, and the
+                one-rank run resumed to DP_RESUME, its last step under
+                torch.profiler (the nccl collectives); (d)
+                scripts/evaluate_torch.py on phase 12's tree (groomed_nms,
+                f32, TF32 off, batch 8), two ranks (torchrun, gloo, run
+                beside (a) and (b) on a copy of phase 12's run directory)
+                against one: rows equal by phase 12's
+                rule, K1 and K2 once a batch a rank; K4 (fast_eval only)
+                counted on every run of (c) and (d) and held at 0; each
+                torchrun's time split (start, imports, main(), the
+                profiler's digest, exit) printed;
+ 19. the kernels JSON line (K1 and K2 with a "video" entry each: the check
      at the video path's shape, its times and bound, and its launches; K1,
      K2, K3 and the grouping with an "export" entry: their launches through
      the detection artifacts of phase 16, K1's and K2's through one video
      clip; K1 and K2 with an "options" entry: their launches in the
-     --refine run, K3 and the grouping: in the jittered run), then the last
-     line: {"ok": true, "device": {...}}.
+     --refine run, K3 and the grouping: in the jittered run; each kernel
+     with a "parallel" entry: its launches a rank on phase 18's paths),
+     then the last line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
-numpy and groomed_nms_torch only.  Tolerances are fixed below, before any
+numpy and groomed_nms_torch only.  ``chip_smoke.py --rank-worker SCRIPT DIR
+[--no-tf32] -- ARGS`` is phase 18's rank under torchrun (``rank_worker``).  Tolerances are fixed below, before any
 run; every error is printed before it is checked.
 """
 
+import atexit
 import copy
 import dataclasses
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -2827,6 +2861,409 @@ def options_phase(dev, flush, stamp, stage2_rate):
             "img_s": {"plain": rates[False], "refine": rates[True]}}
 
 
+# data parallelism (phase 18): groomed_nms_torch/parallel on the card.  Two
+# ranks share the one card through gloo (nccl takes a card a rank); the
+# one-rank runs use nccl.  (b) holds two ranks to one process in f64 to
+# 1e-9 of each tensor's max and the card to the CPU path by phase 13's
+# tiny-loop rule; (d) holds the two ranks' rows to one rank's by phase 12's
+# rule, both in f32 with TF32 off.  The two-rank figures of (c) measure the
+# path on one card, not a scaling: the ranks take turns on it.
+DP_STEPS, DP_RESUME, DP_BATCH, DP_PROFILED = 8, 10, 8, 1
+DP_PARITY_REL = 1e-9
+DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "chip_smoke_parallel")
+DP_KERNELS = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+              "group_leaders", "dense_block_eval")
+COLLECTIVE_KEYS = ("nccl", "gloo", "all_reduce", "allreduce", "broadcast",
+                   "all_gather", "allgather", "barrier")
+
+
+def collectives(prof, steps):
+    """{op or kernel name: [calls a step, device ms a step, host ms a step]}
+    of the collectives in a torch.profiler trace over ``steps`` steps."""
+    out = {}
+    for e in prof.key_averages():
+        name = e.key
+        if name.startswith(("aten::", "autograd::engine")) or not any(
+                k in name.lower() for k in COLLECTIVE_KEYS):
+            continue
+        dev_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+        out[name] = [e.count / steps, dev_us / 1e3 / steps,
+                     e.cpu_time_total / 1e3 / steps]
+    return out
+
+
+def profile_last(run, steps, last):
+    """Wrap ``run.step`` (``train_torch.build_training``'s) so that
+    torch.profiler records the last ``last`` of ``steps`` steps; returns
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    step, calls = run.step, [0]
+
+    def profiled(state, raw):
+        n = calls[0]
+        calls[0] += 1
+        if n == steps - last:
+            torch.cuda.synchronize()
+            prof.start()
+        out = step(state, raw)
+        if n == steps - 1:
+            torch.cuda.synchronize()
+            prof.stop()
+        return out
+    run.step = profiled
+    return prof
+
+
+def rank_worker(argv):
+    """``chip_smoke.py --rank-worker SCRIPT OUT_DIR [--no-tf32] -- ARGS``,
+    as torchrun starts it on each rank: ``scripts/SCRIPT.py``'s main(ARGS),
+    then OUT_DIR/rank<r>.json with the rank's kernel launches and, for
+    train_torch (a fresh run to ARGS' --max-iter), its summary, a digest of
+    its parameters and the collectives of its last DP_PROFILED steps
+    (torch.profiler)."""
+    import contextlib
+    import hashlib
+
+    from groomed_nms_torch.parallel.dryrun import tf32_off
+
+    t_entry = time.time()
+    script_name, out_dir, *rest = argv
+    flags = contextlib.nullcontext()
+    if rest[0] == "--no-tf32":
+        flags = tf32_off()
+        rest = rest[1:]
+    assert rest[0] == "--", rest
+    args = rest[1:]
+    script = load_script(script_name)
+    built = {}
+    if hasattr(script, "build_training"):
+        build = script.build_training
+        steps = int(args[args.index("--max-iter") + 1])
+
+        def keep(*a, **k):
+            run = build(*a, **k)
+            built["prof"] = profile_last(run, steps, DP_PROFILED)
+            built["run"] = run
+            return run
+        script.build_training = keep
+    for n in DP_KERNELS:
+        getattr(kernels, n).launches = 0
+    t_main = time.time()
+    with flags:
+        result = script.main(args)
+    torch.cuda.synchronize()
+    out = {"rank": int(os.environ["RANK"]),
+           "launches": {n: getattr(kernels, n).launches for n in DP_KERNELS},
+           "times": {"entry": t_entry, "main": t_main, "main_end": time.time()}}
+    if built:
+        out["summary"] = {k: result.get(k) for k in (
+            "steps", "step", "start_step", "train_s", "host_wait_s",
+            "step_end_s", "batch_size", "peak_bytes", "peak_bytes_by_rank",
+            "world", "launches")}
+        out["collectives"] = collectives(built["prof"], DP_PROFILED)
+        out["times"]["profile_end"] = time.time()
+        sd = built["run"].model.state_dict()
+        out["digest"] = hashlib.sha256(b"".join(
+            v.detach().cpu().numpy().tobytes() for v in sd.values())
+        ).hexdigest()
+    out["times"]["done"] = time.time()
+    with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def torchrun(nproc, script_name, out_dir, *args, no_tf32=False):
+    """Start ``rank_worker`` on ``nproc`` ranks through torchrun (a
+    subprocess); returns ``finish()``, which waits for it and returns (the
+    ranks' json in rank order, its wall seconds).  A rank that fails fails
+    ``finish()``; a run still going when this process exits is ended."""
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.abspath(__file__),
+           "--rank-worker", script_name, out_dir,
+           *(["--no-tf32"] if no_tf32 else []), "--", *args]
+    t = time.perf_counter()
+    t_start = time.time()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def stop():                       # torchrun ends its ranks on SIGTERM
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait(timeout=60)
+    atexit.register(stop)             # a phase that raises leaves no ranks
+
+    def finish():
+        stdout, stderr = proc.communicate()
+        wall = time.perf_counter() - t
+        t_end = time.time()
+        if proc.returncode:
+            print(stdout[-4000:], stderr[-8000:], flush=True)
+            raise RuntimeError(f"torchrun of {script_name} failed "
+                               f"({proc.returncode})")
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        tr = ranks[0]["times"]
+        split = {"start to rank entry": tr["entry"] - t_start,
+                 "imports and flags": tr["main"] - tr["entry"],
+                 "main()": tr["main_end"] - tr["main"],
+                 "profiler digest": tr.get("profile_end", tr["main_end"]) -
+                 tr["main_end"],
+                 "rank end to exit": t_end - tr["done"]}
+        print(f"torchrun of {script_name} on {nproc} ranks: {wall:.1f} s, "
+              f"rank 0's split (s) "
+              f"{json.dumps({k: round(v, 2) for k, v in split.items()})}",
+              flush=True)
+        return ranks, wall
+    return finish
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def one_rank(fn):
+    """fn() as rank 0 of a one-rank nccl group (torchrun's environment set
+    for the call, so the script joins and leaves the group itself)."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def parallel_phase(dev, stamp):
+    """18: data parallelism (see the module docstring).  Returns the
+    kernels' launches a rank on the data-parallel paths."""
+    import shutil
+
+    from groomed_nms_torch.data.imdb import build_imdb
+    from groomed_nms_torch.parallel.dryrun import (dryrun_multichip,
+                                                   one_process_step,
+                                                   step_parity, tf32_off)
+    from groomed_nms_torch.training.checkpoint import checkpoint_path
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    names = DP_KERNELS
+
+    # (d)'s two ranks start first, on a copy of phase 12's run directory,
+    # and run beside (a) and (b), which time nothing; (c) waits for them
+    ev_script = load_script("evaluate_torch")
+    ev_root = os.path.join(EVAL_DIR, "data")
+    ev_out = os.path.join(EVAL_DIR, "output")
+    ev_out2 = os.path.join(DP_DIR, "eval_two_ranks")
+    shutil.copytree(os.path.join(ev_out, "groomed_nms"),
+                    os.path.join(ev_out2, "groomed_nms"),
+                    ignore=shutil.ignore_patterns("results"))
+    ev_args = ["--config", "groomed_nms", "--data-root", ev_root,
+               "--restore", "0", "--batch", "8", "--set", "score_thres=0.0",
+               "--set", "compute_dtype=float32", "--skip-eval"]
+    finish_eval = torchrun(2, "evaluate_torch",
+                           os.path.join(DP_DIR, "json_eval"), *ev_args,
+                           "--output", ev_out2, "--dist-backend", "gloo",
+                           no_tf32=True)
+
+    # -- (a) dryrun_multichip(2) on the card -------------------------------
+    t = time.perf_counter()
+    dry = dryrun_multichip(2, dev)
+    print(f"parallel (a): dryrun_multichip(2) on the card, {dry['backend']}: "
+          f"train launches by rank "
+          f"{[r['train_launches'] for r in dry['ranks']]} (2 steps), eval "
+          f"launches by rank {[r['eval_launches'] for r in dry['ranks']]} "
+          f"(1 batch); {time.perf_counter() - t:.1f} s {stamp}", flush=True)
+    for r in dry["ranks"]:
+        assert r["train_launches"]["fused_iou_prune"] == 2
+        assert r["train_launches"]["group_leaders"] == 2
+        assert r["eval_launches"] == dict(fused_head_scores=1, greedy_nms=1)
+
+    # -- (b) the tiny step: one rank against two sharing the card, f64 -----
+    t = time.perf_counter()
+    worst, key, same, one, _, one_stats = step_parity(2, dev, torch.float64)
+    cpu, cpu_stats = one_process_step(2, "cpu", torch.float64)
+    cpu_err = max(((one[k] - v).abs().max() / v.abs().max()).item()
+                  for k, v in cpu.items()
+                  if v.is_floating_point() and v.abs().max() > 0)
+    print(f"parallel (b): the tiny GrooMeD step (batch_skip 2, 2 micro-"
+          f"steps), 2 ranks sharing the card (gloo) vs one process, f64: max "
+          f"param err / max {worst:.3e} at {key} (tol {DP_PARITY_REL:g}), "
+          f"ranks' parameters and running statistics identical: {same}; one "
+          f"process card vs CPU path {cpu_err:.3e} (tol {TINY_LOOP_REL:g}); "
+          f"loss {one_stats[-1]['total']:.6f} (CPU {cpu_stats[-1]['total']:.6f}"
+          f"); {time.perf_counter() - t:.1f} s", flush=True)
+    assert same and worst <= DP_PARITY_REL and cpu_err <= TINY_LOOP_REL
+
+    ev_ranks, ev_wall = finish_eval()
+
+    # -- (c) scripts/train_torch.py at full width: stage 2 on phase 13's
+    # tree, warm-started from its stage 1, global batch DP_BATCH --------------
+    script = load_script("train_torch")
+    data_root = os.path.join(TRAIN_DIR, "data")
+    warm_dir = os.path.join(TRAIN_DIR, "output", "kitti_3d_warmup")
+    train_args = ["--config", "groomed_nms", "--data-root", data_root,
+                  "--set", f"pretrained={warm_dir!r}", "--set",
+                  f"batch_size={DP_BATCH}", "--set", "do_test=False",
+                  "--set", "display=4"]
+
+    def rate(s, last=None):
+        """(ms/step from the second step to step ``last`` (the last), img/s,
+        host_wait share) of a summary."""
+        ends = s["step_end_s"]
+        last = last or s["steps"]
+        ms = (ends[last - 1] - ends[0]) / (last - 1) * 1e3
+        return ms, s["batch_size"] / ms * 1e3, s["host_wait_s"] / s["train_s"]
+
+    one_out = os.path.join(DP_DIR, "one_rank")
+    for n in names:
+        getattr(kernels, n).launches = 0
+    t = time.perf_counter()
+    s1 = one_rank(lambda: script.main([*train_args, "--output", one_out,
+                                       "--max-iter", str(DP_STEPS),
+                                       "--dist-backend", "nccl"]))
+    wall1 = time.perf_counter() - t
+    l1 = {n: getattr(kernels, n).launches for n in names}
+    ms1, ips1, wait1 = rate(s1)
+    print(f"parallel (c): train_torch.py groomed_nms f32 512x1760, global "
+          f"batch {DP_BATCH}, 1 rank (nccl), {s1['steps']} steps: "
+          f"{ms1:.2f} ms/step over steps 2-{DP_STEPS}, {ips1:.2f} img/s, "
+          f"host_wait "
+          f"{wait1:.2%}, peak memory {s1['peak_bytes_by_rank']} B by rank; "
+          f"launches {l1}; {wall1:.1f} s with set-up {stamp}", flush=True)
+    assert s1["world"] == 1 and s1["step"] == DP_STEPS
+    assert l1["fused_iou_prune"] == l1["group_leaders"] == DP_STEPS, l1
+    assert l1["dense_block_eval"] == 0, l1        # no fast_eval in training
+
+    two_out = os.path.join(DP_DIR, "two_ranks")
+    ranks, wall2 = torchrun(2, "train_torch", os.path.join(DP_DIR, "json2"),
+                            *train_args, "--output", two_out, "--max-iter",
+                            str(DP_STEPS), "--dist-backend", "gloo")()
+    digests = {r["digest"] for r in ranks}
+    for r in ranks:
+        s = r["summary"]
+        ms, ips, wait = rate(s, DP_STEPS - DP_PROFILED)
+        print(f"parallel (c): 2 ranks sharing the card (gloo), rank "
+              f"{r['rank']}: {ms:.2f} ms/step over steps 2-"
+              f"{DP_STEPS - DP_PROFILED} (a check of the path on one card, "
+              f"not a scaling number), {ips:.2f} img/s, host_wait "
+              f"{wait:.2%}, peak memory {s['peak_bytes']} B; launches a step "
+              f"{ {n: v / s['steps'] for n, v in r['launches'].items()} }; "
+              f"collectives a step over the last {DP_PROFILED} (torch."
+              f"profiler) [calls, device ms, host ms] "
+              f"{json.dumps(r['collectives'])} {stamp}", flush=True)
+        assert s["world"] == 2 and s["step"] == DP_STEPS
+        assert r["launches"]["fused_iou_prune"] == DP_STEPS
+        assert r["launches"]["group_leaders"] == DP_STEPS
+        assert r["launches"]["dense_block_eval"] == 0
+    print(f"parallel (c): 2 ranks: parameters identical across ranks: "
+          f"{len(digests) == 1}; {wall2:.1f} s for torchrun with set-up",
+          flush=True)
+    assert len(digests) == 1, "the ranks' parameters differ"
+    for out in (one_out, two_out):
+        wdir = os.path.dirname(checkpoint_path(
+            os.path.join(out, "groomed_nms"), DP_STEPS))
+        assert os.listdir(wdir) == [f"checkpoint_{DP_STEPS}.pt"], \
+            os.listdir(wdir)
+        with open(os.path.join(out, "groomed_nms", "metrics.csv")) as f:
+            rows = f.read().splitlines()
+        col = rows[0].split(",").index("total")
+        totals = [float(r.split(",")[col]) for r in rows[1:]]
+        assert len(totals) == DP_STEPS // 4 and np.isfinite(totals).all(), \
+            totals
+
+    # the one-rank run resumed to DP_RESUME, its last step under
+    # torch.profiler: the collectives of a step on nccl, with device time
+    build, profiled = script.build_training, {}
+
+    def build_profiled(*a, **k):
+        run = build(*a, **k)
+        profiled["prof"] = profile_last(run, DP_RESUME - DP_STEPS,
+                                        DP_PROFILED)
+        return run
+    script.build_training = build_profiled
+    try:
+        s3 = one_rank(lambda: script.main([*train_args, "--output", one_out,
+                                           "--max-iter", str(DP_RESUME),
+                                           "--dist-backend", "nccl"]))
+    finally:
+        script.build_training = build
+    coll1 = collectives(profiled.pop("prof"), DP_PROFILED)
+    print(f"parallel (c): 1 rank resumed at {s3['start_step']} to "
+          f"{s3['step']}; collectives a step [calls, device ms, host ms] "
+          f"{json.dumps(coll1)} {stamp}", flush=True)
+    assert s3["start_step"] == DP_STEPS and s3["step"] == DP_RESUME
+    torch.cuda.empty_cache()
+
+    # -- (d) scripts/evaluate_torch.py, 2 ranks against 1, f32 TF32 off ----
+    def results(out):
+        return os.path.join(out, "groomed_nms", "results", "results_0",
+                            "data")
+    shutil.rmtree(results(ev_out), ignore_errors=True)
+    for n in names:
+        getattr(kernels, n).launches = 0
+    with tf32_off():
+        ev_script.main([*ev_args, "--output", ev_out])
+    le1 = {n: getattr(kernels, n).launches for n in names}
+    rows1 = read_rows(results(ev_out))
+    rows2 = read_rows(results(ev_out2))
+    same_rows, n_cmp, n_ok, max_err = row_agreement(rows2, rows1)
+    imdb = build_imdb(os.path.join(ev_root, "kitti_split1"), "validation")
+    want = [0, 0]                     # K1/K2 launches of each rank
+    for size in EVAL_SIZES:
+        n = sum(1 for r in imdb if (r.im_h, r.im_w) == size)
+        for i in range(0, n, 8):
+            for rank in range(2):
+                want[rank] += len(range(n)[i:i + 8][rank * 4:rank * 4 + 4]) > 0
+    print(f"parallel (d): evaluate_torch.py groomed_nms f32 (TF32 off) on "
+          f"phase 12's tree, batch 8: 1 rank launches {le1}; 2 ranks "
+          f"sharing the card (gloo, 4 frames a rank a batch) launches by rank "
+          f"{[r['launches'] for r in ev_ranks]}; rows: files, counts and "
+          f"classes equal {same_rows}, {n_ok}/{n_cmp} rows within phase 12's "
+          f"rule, max |err| {max_err:.3e}; {ev_wall:.1f} s for torchrun, "
+          f"beside (a) and (b) "
+          f"{stamp}", flush=True)
+    assert same_rows and n_ok == n_cmp > 0
+    for r, w in zip(ev_ranks, want):
+        assert r["launches"]["fused_head_scores"] == w, (r, w)
+        assert r["launches"]["greedy_nms"] == w, (r, w)
+        assert r["launches"]["dense_block_eval"] == 0, r  # no fast_eval
+    assert le1["dense_block_eval"] == 0, le1
+    print(f"parallel: phase 18 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"train_rank_launches_per_step": {
+                n: ranks[0]["launches"][n] / DP_STEPS
+                for n in ("fused_iou_prune", "group_leaders")},
+            "eval_rank_launches": [
+                {n: r["launches"][n] for n in ("fused_head_scores",
+                                               "greedy_nms")}
+                for r in ev_ranks],
+            # K4 (fast_eval only): measured on every phase-18 run
+            "dense_block_eval": {
+                "one_rank_train_launches": l1["dense_block_eval"],
+                "train_launches_by_rank": [
+                    r["launches"]["dense_block_eval"] for r in ranks],
+                "one_rank_eval_launches": le1["dense_block_eval"],
+                "eval_launches_by_rank": [
+                    r["launches"]["dense_block_eval"] for r in ev_ranks]},
+            "dryrun_train_launches": dry["ranks"][0]["train_launches"],
+            "dryrun_eval_launches": dry["ranks"][0]["eval_launches"]}
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3146,8 +3583,9 @@ def main():
     video_train_phase(dev, stamp)
     export_launches, export_video = export_phase(dev, stamp)
     options = options_phase(dev, flush, stamp, stage2_rate)
+    parallel = parallel_phase(dev, stamp)
 
-    # -- 18. results ----------------------------------------------------------
+    # -- 19. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,
@@ -3177,7 +3615,11 @@ def main():
                     "video_launches": export_video["full width f32"][
                         "fused_head_scores"]},
          "options": {"refine_launches":
-                     options["refine"]["fused_head_scores"]}},
+                     options["refine"]["fused_head_scores"]},
+         "parallel": {"eval_launches_by_rank": [
+             r["fused_head_scores"] for r in parallel["eval_rank_launches"]],
+             "dryrun_eval_launches_a_rank":
+             parallel["dryrun_eval_launches"]["fused_head_scores"]}},
         {"name": "greedy_nms", "route": "cuda",
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
@@ -3188,7 +3630,11 @@ def main():
          "export": {"launches": export_launches["greedy_nms"],
                     "video_launches": export_video["full width f32"][
                         "greedy_nms"]},
-         "options": {"refine_launches": options["refine"]["greedy_nms"]}},
+         "options": {"refine_launches": options["refine"]["greedy_nms"]},
+         "parallel": {"eval_launches_by_rank": [
+             r["greedy_nms"] for r in parallel["eval_rank_launches"]],
+             "dryrun_eval_launches_a_rank":
+             parallel["dryrun_eval_launches"]["greedy_nms"]}},
         # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
         # block 1 + block 2
         {"name": "dense_block_eval", "route": "cuda",
@@ -3201,7 +3647,8 @@ def main():
          "ms": sum(v["ms"] for v in k4.values()),
          "plain_ms": sum(v["plain_ms"] for v in k4.values()),
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-         "library_ms": sum(v["lib_ms"] for v in k4.values())},
+         "library_ms": sum(v["lib_ms"] for v in k4.values()),
+         "parallel": parallel["dense_block_eval"]},
         # launches: the full-size train loop's; ms at its shape [8, 512, 4]
         {"name": "fused_iou_prune", "route": "cuda",
          "source": "groomed_nms_torch/csrc/iou_prune.cu",
@@ -3213,7 +3660,11 @@ def main():
          "bound_by": k3["train"]["bound_by"], "library_ms": None,
          "export": {"launches": export_launches["fused_iou_prune"]},
          "options": {"jitter_launches":
-                     options["jitter"]["fused_iou_prune"]}},
+                     options["jitter"]["fused_iou_prune"]},
+         "parallel": {"train_launches_a_rank_a_step": parallel[
+             "train_rank_launches_per_step"]["fused_iou_prune"],
+             "dryrun_train_launches_a_rank":
+             parallel["dryrun_train_launches"]["fused_iou_prune"]}},
         # no TPU kernel: the JAX grouping is a lax.while_loop; launches the
         # train loop's, ms on the operator's own input at [8, 512]
         {"name": "group_leaders", "route": "cuda",
@@ -3224,7 +3675,11 @@ def main():
          "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
          "library_ms": None,
          "export": {"launches": export_launches["group_leaders"]},
-         "options": {"jitter_launches": options["jitter"]["group_leaders"]}},
+         "options": {"jitter_launches": options["jitter"]["group_leaders"]},
+         "parallel": {"train_launches_a_rank_a_step": parallel[
+             "train_rank_launches_per_step"]["group_leaders"],
+             "dryrun_train_launches_a_rank":
+             parallel["dryrun_train_launches"]["group_leaders"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3232,4 +3687,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(sys.argv[2:])
+    else:
+        main()

@@ -33,6 +33,7 @@ import torch
 
 from ..anchors import (compute_targets, generate_anchor_templates,
                        learn_anchor_priors, locate_anchors)
+from ..parallel.dist import local_rows
 from .augment import mirror_labels, scale_labels
 from .imdb import balance_samples, class_indices, determine_ignores, \
     pad_gt_batch
@@ -333,15 +334,22 @@ class TrainLoader:
 
     ``next()`` returns ``{"images_u8": [B, H0, W0, 3] uint8 (zero-padded to
     the batch's largest frame), "mirror": [B] bool, "gt": GTBatch}`` of
-    numpy arrays.  An exception in the worker is raised by ``next()``;
+    numpy arrays.
+
+    With ``world > 1`` the batch is rank ``rank``'s rows of the global
+    batch of ``cfg.batch_size`` (``parallel.local_rows``; the batch size
+    must divide by the world): every rank makes every draw of the global
+    batch in the same order, so the ranks' streams stay in step, and
+    decodes and labels only its own rows.  An exception in the worker is raised by ``next()``;
     ``close()`` stops the worker; ``pop_wait_stats()`` gives the time the
     consumer waited since the last call.
     """
 
     def __init__(self, imdb, cfg, seed=0, prefetch=4, decode_workers=8,
-                 raw_cache_dir=None):
+                 raw_cache_dir=None, rank=0, world=1):
         self.imdb = imdb
         self.cfg = cfg
+        self._rows = local_rows(cfg.batch_size, rank, world)
         self._pool = ThreadPoolExecutor(max_workers=decode_workers)
         self._cache_dir = raw_cache_dir
         if raw_cache_dir:
@@ -370,15 +378,19 @@ class TrainLoader:
         self._thread.start()
 
     def _sample_indices(self):
+        """This rank's records of the next global batch and their mirror
+        draws: the group, the global batch's records, then one mirror draw
+        a record in index order."""
         gi = self.rng.choice(len(self._size_groups), p=self._group_w)
         group = self._size_groups[gi]
         gw = self.weights[group]
-        return self.rng.choice(group, size=self.cfg.batch_size,
-                               p=gw / gw.sum())
+        idx = self.rng.choice(group, size=self.cfg.batch_size,
+                              p=gw / gw.sum())
+        mirrors = self.rng.random(len(idx)) <= self.cfg.mirror_prob
+        return idx[self._rows], mirrors[self._rows]
 
-    def _sample_labels(self, rec, frame):
+    def _sample_labels(self, rec, frame, mirror):
         cfg = self.cfg
-        mirror = self.rng.random() <= cfg.mirror_prob
         gts = rec.gts
         if mirror and gts:
             gts = mirror_labels(gts, rec.p2_inv, frame.shape[1])
@@ -389,23 +401,22 @@ class TrainLoader:
 
     def _make_batch(self):
         cfg = self.cfg
-        idx = self._sample_indices()
-        # decode in parallel, then draw the mirrors in index order
+        idx, draws = self._sample_indices()
         images = list(self._pool.map(
             lambda i: load_image_cached(self.imdb[i].image_path,
                                         self.imdb[i].id, self._cache_dir),
             idx))
         gts_list, p2s, scales, mirrors = [], [], [], []
-        for i, img in zip(idx, images):
+        for i, img, mirror in zip(idx, images, draws):
             rec = self.imdb[i]
-            gts, scale, mirror = self._sample_labels(rec, img)
+            gts, scale, mirror = self._sample_labels(rec, img, mirror)
             gts_list.append(gts)
             p2s.append(rec.p2)
             scales.append(scale)
             mirrors.append(mirror)
         h0 = max(im.shape[0] for im in images)
         w0 = max(im.shape[1] for im in images)
-        img_arr = np.zeros((cfg.batch_size, h0, w0, 3), np.uint8)
+        img_arr = np.zeros((len(idx), h0, w0, 3), np.uint8)
         for bi, im in enumerate(images):
             img_arr[bi, :im.shape[0], :im.shape[1]] = im
         return self._finish_batch(img_arr, gts_list, p2s, scales, mirrors)
@@ -511,30 +522,29 @@ class VideoTrainLoader(TrainLoader):
     """
 
     def __init__(self, imdb, cfg, seed=0, prefetch=4, n_frames=None,
-                 decode_workers=8, raw_cache_dir=None):
+                 decode_workers=8, raw_cache_dir=None, rank=0, world=1):
         self.n_frames = n_frames or max(1, cfg.video_count)
         views = [r if hasattr(r, "gts") else ClipRecordView(r) for r in imdb]
         super().__init__(views, cfg, seed=seed, prefetch=prefetch,
                          decode_workers=decode_workers,
-                         raw_cache_dir=raw_cache_dir)
+                         raw_cache_dir=raw_cache_dir, rank=rank, world=world)
 
     def _make_batch(self):
         cfg = self.cfg
-        idx = self._sample_indices()
+        idx, draws = self._sample_indices()
         clips = list(self._pool.map(
             lambda i: np.stack(self._load_clip(self.imdb[i])), idx))
         gts_list, p2s, scales, mirrors = [], [], [], []
-        for i, clip in zip(idx, clips):
+        for i, clip, mirror in zip(idx, clips, draws):
             rec = self.imdb[i]
-            gts, scale, mirror = self._sample_labels(rec, clip[-1])
+            gts, scale, mirror = self._sample_labels(rec, clip[-1], mirror)
             gts_list.append(gts)
             p2s.append(rec.p2)
             scales.append(scale)
             mirrors.append(mirror)
         h0 = max(c.shape[1] for c in clips)
         w0 = max(c.shape[2] for c in clips)
-        img_arr = np.zeros((cfg.batch_size, self.n_frames, h0, w0, 3),
-                           np.uint8)
+        img_arr = np.zeros((len(idx), self.n_frames, h0, w0, 3), np.uint8)
         for bi, c in enumerate(clips):
             img_arr[bi, :, :c.shape[1], :c.shape[2]] = c
         return self._finish_batch(img_arr, gts_list, p2s, scales, mirrors)

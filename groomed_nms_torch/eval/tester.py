@@ -19,9 +19,11 @@ most 3 batches are in flight before the oldest is written.
 each batch's final rows on the device, with each record's original-frame
 P2, before the copy to the host.
 
-Left out of the JAX loop: the device mesh (one card here; data parallelism
-is ROADMAP queue 1, item 6) and the per-model compiled-graph cache
-(PyTorch runs eagerly).  ``render > 0`` (matplotlib and Pillow) raises
+Under a process group (``dist``) each rank runs its rows of every global
+batch (``parallel.local_rows``: a batch of ``batch_size`` frames is split
+over the ranks as JAX's mesh shards it), writes their txt files, and rank
+0 runs the evaluator once every rank is done.  Left out of the JAX loop:
+the per-model compiled-graph cache (PyTorch runs eagerly).  ``render > 0`` (matplotlib and Pillow) raises
 ``ValueError``.
 """
 
@@ -99,7 +101,7 @@ def _size_groups(imdb, single):
 def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
                   results_dir, gt_dir=None, batch_size=None, log_fn=None,
                   skip_eval=False, render=0, refine=False, raw_cache_dir=None,
-                  loop_stats=None):
+                  loop_stats=None, dist=None):
     """Run inference over ``imdb`` into ``results_dir``/data; evaluate when
     ``gt_dir`` exists.
 
@@ -113,8 +115,13 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
     around each batch.  Returns the evaluator's AP dict
     (``evaluate_kitti_results_verbose``), or None when evaluation was
     skipped.
+
+    ``dist``, a ``parallel.Dist``: this rank runs its rows of each batch
+    (``batch_size`` must divide by the world) and the ranks wait for each
+    other before rank 0 evaluates; the other ranks return None.
     """
     from ..data.pipeline import device_prefetch, load_image_cached
+    from ..parallel.dist import barrier, local_rows
     from .kitti_eval import evaluate_kitti_results_verbose
 
     if render:
@@ -123,6 +130,9 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
                          "slice)")
     log_fn = log_fn or logging.getLogger(__name__).info
     batch_size = batch_size or cfg.test_batch_size
+    rows = local_rows(batch_size, dist.rank, dist.world) \
+        if dist is not None else slice(0, batch_size)
+    local_b = rows.stop - rows.start
     os.makedirs(os.path.join(results_dir, "data"), exist_ok=True)
     if raw_cache_dir:
         os.makedirs(raw_cache_dir, exist_ok=True)
@@ -145,12 +155,12 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
     def load_chunk(chunk, h0, w0):
         """One batch on the host: frames (pinned on a CUDA run; slots past
         the chunk zero), true sizes, P2 and its inverse, and the scale."""
-        imgs_t = torch.empty((batch_size, h0, w0, 3), dtype=torch.uint8,
+        imgs_t = torch.empty((local_b, h0, w0, 3), dtype=torch.uint8,
                              pin_memory=cuda)
         imgs = imgs_t.numpy()
         imgs[len(chunk):] = 0
-        hw = np.tile(np.array([[h0, w0]], np.float32), (batch_size, 1))
-        p2 = np.tile(np.eye(4, dtype=np.float32)[None], (batch_size, 1, 1))
+        hw = np.tile(np.array([[h0, w0]], np.float32), (local_b, 1))
+        p2 = np.tile(np.eye(4, dtype=np.float32)[None], (local_b, 1, 1))
 
         def read(bi_rec):
             bi, rec = bi_rec
@@ -180,8 +190,9 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
     def chunk_iter():
         for (h0, w0), recs in _size_groups(imdb, single).items():
             for i in range(0, len(recs), batch_size):
-                chunk = recs[i:i + batch_size]
-                yield chunk, load_chunk(chunk, h0, w0)
+                chunk = recs[i:i + batch_size][rows]
+                if chunk:
+                    yield chunk, load_chunk(chunk, h0, w0)
 
     t0 = time.perf_counter()
     n_done = 0
@@ -248,6 +259,10 @@ def test_kitti_3d(cfg, model, rois, rois_3d, bbox_means, bbox_stds, imdb,
         loop_stats.update(images=n_done, wall_s=wall)
         if cuda:
             loop_stats["busy_s"] = busy
+    if dist is not None:
+        barrier(dist)
+        if dist.rank != 0:
+            return None
     if skip_eval or not gt_dir or not os.path.isdir(gt_dir):
         return None
     return evaluate_kitti_results_verbose(results_dir, gt_dir,

@@ -42,7 +42,13 @@ from ..ops.boxes import bbox_transform_inv
 from ..ops.geometry import alpha_to_rot_y, get_corners_of_cuboid, snap_to_pi
 from ..ops.groomed_nms import _abs, _clip, _rows, groomed_nms_boxes
 from ..ops.iou import elementwise_iou, iou3d_approximate, pairwise_iou
+from ..parallel.dist import all_gather, global_counts
 from .aploss import ap_loss
+
+# the cap on the decoded 2D boxes' log-scales in the loss: a box a million
+# times its anchor, so that corners, areas and their squares stay finite in
+# f32; every row below it decodes as JAX's does
+MAX_LOG_SCALE = math.log(1e6)
 
 
 class UncertaintyState(NamedTuple):
@@ -154,6 +160,22 @@ class LossConfig:
                     f"ordinal classify, got {len(self.bins_boundary)}")
 
 
+def accept_head_trained(cfg: LossConfig, classify: bool) -> bool:
+    """Whether ``rpn_3d_loss`` takes a gradient through the acceptance head:
+    ``accept_cls`` (``classify``) in the acceptance loss only;
+    ``accept_prob`` there, as the scores of GrooMeD-NMS when an after-NMS
+    loss reads them, and in the 3D terms and the (1 - confidence) term."""
+    accept_loss = bool(cfg.predict_acceptance_prob and
+                       cfg.acceptance_prob_lambda)
+    if classify:
+        return accept_loss
+    return accept_loss or bool(
+        (cfg.use_nms_in_loss and cfg.after_nms_lambda) or
+        (cfg.bbox_3d_lambda and (cfg.use_acceptance_prob_in_regression_loss
+                                 or cfg.bbox_un_dynamic
+                                 or cfg.bbox_un_lambda > 0)))
+
+
 def _smooth_l1(x, t):
     d = (x - t).abs()
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
@@ -164,10 +186,118 @@ def _bce(p, t, eps=1e-7):
     return -(t * torch.log(p) + (1.0 - t) * torch.log1p(-p))
 
 
-def _masked_mean(x, mask):
-    """Mean of x over mask & isfinite(x); 0 if the set is empty."""
-    ok = mask & torch.isfinite(x)
-    return torch.where(ok, x, 0.0).sum() / ok.sum().clamp_min(1)
+class _Deferred:
+    """A scalar of the loss written before the batch-wide counts are
+    known: ``fn(get)`` computes it once they are, ``get`` giving the value
+    of each masked mean (``_Means``).  ``+`` and ``*`` with numbers,
+    tensors and other deferred scalars build larger ones that evaluate in
+    the order written, so a single process computes what an eager
+    expression would, op for op."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __add__(self, o):
+        return _Deferred(lambda g: self.fn(g) + _ev(o, g))
+
+    def __radd__(self, o):
+        return _Deferred(lambda g: _ev(o, g) + self.fn(g))
+
+    def __mul__(self, o):
+        return _Deferred(lambda g: self.fn(g) * _ev(o, g))
+
+    def __rmul__(self, o):
+        return _Deferred(lambda g: _ev(o, g) * self.fn(g))
+
+
+def _ev(x, get):
+    return x.fn(get) if isinstance(x, _Deferred) else x
+
+
+def _where(cond, x, other):
+    """``torch.where(cond, x, other)`` of a deferred ``x``."""
+    return _Deferred(lambda g: torch.where(cond, _ev(x, g), other))
+
+
+def _global(x):
+    """``x`` evaluated from the global batch's values and detached, also
+    where the rank's share of the loss is being evaluated (the dynamic
+    lambda: a coefficient every rank must agree on)."""
+    return _Deferred(lambda g: _ev(x, g.glob).detach())
+
+
+class _Get:
+    """Memoised values of one evaluation; ``glob`` is the evaluation of the
+    global batch's values (itself in a single process)."""
+
+    def __init__(self, fn):
+        self.fn, self.memo, self.glob = fn, {}, self
+
+    def __call__(self, key):
+        if key not in self.memo:
+            self.memo[key] = self.fn(*key)
+        return self.memo[key]
+
+
+class _Means:
+    """The batch-wide means of one loss call.
+
+    ``m(x, mask)`` is the mean of x over mask & isfinite(x) (0 on an empty
+    set), ``m.ratio(s, c)`` a sum over a count, ``m.replicated(v)`` a value
+    every rank computes whole from gathered inputs and ``m.summed(t)`` a
+    count for the stats; each is a ``_Deferred``.  ``m.getter()`` gives
+    their values.  In a single process (``ctx`` None or of world 1): sum /
+    count as computed, ``v`` and ``t`` themselves.  Under a process group:
+    every count and a detached copy of every sum are summed over the ranks
+    in ONE ``global_counts`` reduction; the getter gives this rank's share of
+    each mean (its own sum over the global count; ``v / world``), so the
+    shares of a loss linear in them sum to the global batch's loss, and
+    its ``glob`` the global values (global sum over global count; ``v``;
+    the summed ``t``) for the stats.
+    """
+
+    def __init__(self, ctx):
+        self.ctx = ctx if ctx is not None and ctx.active else None
+        self.items = {"m": [], "r": [], "t": []}
+
+    def _add(self, kind, item):
+        self.items[kind].append(item)
+        key = (kind, len(self.items[kind]) - 1)
+        return _Deferred(lambda g: g(key))
+
+    def __call__(self, x, mask):
+        ok = mask & torch.isfinite(x)
+        return self.ratio(torch.where(ok, x, 0.0).sum(), ok.sum())
+
+    def ratio(self, s, c):
+        return self._add("m", (s, c))
+
+    def replicated(self, v):
+        return self._add("r", v)
+
+    def summed(self, t):
+        return self._add("t", t)
+
+    def getter(self):
+        means, repl, totals = (self.items[k] for k in "mrt")
+        if self.ctx is None:
+            return _Get(lambda kind, i: means[i][0] / means[i][1].clamp_min(1)
+                        if kind == "m" else repl[i] if kind == "r"
+                        else totals[i])
+        red = global_counts(self.ctx, *(x for m in means for x in m[::-1]),
+                            *totals)
+        n, world = len(means), self.ctx.world
+        c_glob, s_glob, t_glob = red[0:2 * n:2], red[1:2 * n:2], red[2 * n:]
+        glob = _Get(lambda kind, i: s_glob[i] / c_glob[i].clamp_min(1)
+                    if kind == "m" else repl[i].detach() if kind == "r"
+                    else t_glob[i])
+        share = _Get(lambda kind, i: means[i][0] / c_glob[i].clamp_min(1)
+                     if kind == "m" else repl[i] / world if kind == "r"
+                     else t_glob[i])
+        share.glob = glob
+        return share
 
 
 def _rank_ascending(key):
@@ -236,7 +366,7 @@ def _nms_in_loss(cfg, scores_nms, fg_sel, coords_2d, raw3d, batch):
 
 
 def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
-                un_state: UncertaintyState, cfg: LossConfig):
+                un_state: UncertaintyState, cfg: LossConfig, dist=None):
     """Total loss + stats for one batch.
 
     ``outputs``: 'cls' [B, R, C], 'prob' [B, R, C], 'bbox_2d' [B, R, 4],
@@ -250,6 +380,17 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
 
     Returns ``(loss, stats, new_un_state)``: ``stats`` maps each term's name
     to a 0-dim tensor (nothing is read back to the host).
+
+    ``dist``, a ``parallel.Dist`` of world W > 1, makes the batch this
+    rank's rows of a global batch and the loss the global batch's, as one
+    process computes it: the fg/bg counts behind the class weights (and
+    the after-NMS ``classify`` counts) are summed over the ranks first,
+    every other count and a detached copy of every sum at the end, each
+    round in one ``global_counts`` reduction; an AP loss over the whole batch
+    ranks every rank's boxes (``all_gather``).  ``loss`` is then this rank's
+    share (the shares sum to the global loss: scale it by W before
+    ``DistributedDataParallel`` averages the gradients), while ``stats``
+    and ``new_un_state`` are the global batch's, identical on every rank.
     """
     cls, prob = outputs["cls"], outputs["prob"]
     bbox_2d, bbox_3d = outputs["bbox_2d"], outputs["bbox_3d"]
@@ -263,6 +404,11 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
     b, r, _ = cls.shape
     means, stds = bbox_means.float(), bbox_stds.float()
     stats = {}
+    mm = _Means(dist)
+
+    def whole_batch(x):
+        """x [B, ...] of every rank, in rank order (the global batch)."""
+        return x if mm.ctx is None else all_gather(x, mm.ctx)
 
     # -- targets ---------------------------------------------------------
     tgt = compute_targets(
@@ -295,7 +441,7 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
     fg_sel = _select_lowest(fg, sample_score, want_fg)
     bg_sel = _select_lowest(bg, sample_score, want_bg)
     active = fg_sel | bg_sel
-    fg_num, bg_num = fg_sel.sum(), bg_sel.sum()
+    fg_num, bg_num = global_counts(mm.ctx, fg_sel.sum(), bg_sel.sum())
 
     # global class re-weighting
     fg_weight = torch.where(
@@ -309,10 +455,15 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             active, (1.0 - score_of_label) ** cfg.focal_loss, 1.0)
 
     # -- decode predictions ----------------------------------------------
+    # the log-scales are capped (MAX_LOG_SCALE) where JAX's are not: a row
+    # whose exp overflows f32 would give infinite corners, and even a row
+    # the masks leave out then turns the IoU's backward into 0 * inf = NaN
     coords_2d = bbox_transform_inv(rois[None, :, :4], bbox_2d,
-                                   means=means[:4], stds=stds[:4])
+                                   means=means[:4], stds=stds[:4],
+                                   max_log_scale=MAX_LOG_SCALE)
     coords_2d_tar = bbox_transform_inv(rois[None, :, :4], t2d_n,
-                                       means=means[:4], stds=stds[:4])
+                                       means=means[:4], stds=stds[:4],
+                                       max_log_scale=MAX_LOG_SCALE)
     widths = rois[:, 2] - rois[:, 0] + 1.0
     heights = rois[:, 3] - rois[:, 1] + 1.0
     ctr_x = rois[:, 0] + 0.5 * widths
@@ -365,12 +516,12 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         # where-masked, not multiplied: 0 * -inf would be NaN
         ce = -torch.where(label_onehot > 0, logp, 0.0).sum(-1)
         ce = _clip(ce * labels_weight, 0.0, 2000.0)
-        loss_cls = _masked_mean(ce, active) * cfg.cls_2d_lambda
+        loss_cls = mm(ce, active) * cfg.cls_2d_lambda
         total = total + loss_cls
         stats["cls"] = loss_cls
         cls_pred = cls.detach().argmax(-1)
-        stats["acc_fg"] = _masked_mean((cls_pred == label_int).float(), fg)
-        stats["acc_bg"] = _masked_mean((cls_pred == 0).float(), bg)
+        stats["acc_fg"] = mm((cls_pred == label_int).float(), fg)
+        stats["acc_bg"] = mm((cls_pred == 0).float(), bg)
 
     # -- acceptance probability -------------------------------------------
     # targets: IoU3D of each fg anchor's prediction with its GT (no
@@ -412,7 +563,7 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             w_pos = torch.where(n_neg > 0, n_neg / n_pos.clamp_min(1.0), 1.0)
             bce = _bce(accept_cls, pos.float())
             bce = bce * torch.where(pos, w_pos[:, None, :], 1.0)
-            loss_ap = _masked_mean(bce, accept_sel[..., None].expand_as(bce)) \
+            loss_ap = mm(bce, accept_sel[..., None].expand_as(bce)) \
                 * cfg.acceptance_prob_lambda
         elif cfg.acceptance_prob_mode == "rank":
             # every active box of the batch in ONE AP loss (the reference
@@ -430,8 +581,9 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             valid = torch.gather(key, 1, idx) > float("-inf")
             sc = torch.where(valid, torch.gather(ap_scores, 1, idx), 0.0)
             tar = torch.where(valid, torch.gather(rank_tar, 1, idx), -1.0)
-            loss_ap = ap_loss(sc.reshape(-1), tar.reshape(-1)) \
-                * cfg.acceptance_prob_lambda
+            loss_ap = mm.replicated(ap_loss(
+                whole_batch(sc).reshape(-1),
+                whole_batch(tar).reshape(-1))) * cfg.acceptance_prob_lambda
         elif cfg.acceptance_prob_mode in ("likelihood", "regress"):
             if cfg.acceptance_prob_mode == "likelihood" and \
                     cfg.boxes_for_acceptance_prob == "foregrounds":
@@ -444,7 +596,7 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
                 lp = lp * labels_weight.detach()
             if cfg.weigh_acceptance_prob_regularization:
                 lp = lp * accept_tar
-            loss_ap = _masked_mean(lp, accept_sel) * cfg.acceptance_prob_lambda
+            loss_ap = mm(lp, accept_sel) * cfg.acceptance_prob_lambda
         else:
             raise NotImplementedError(cfg.acceptance_prob_mode)
         total = total + loss_ap
@@ -471,22 +623,26 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
                 targets = torch.where(valid,
                                       torch.gather(targets_after, 1, idx), -1.0)
                 if cfg.rank_boxes_of_all_images_at_once:
-                    loss_nms = ap_loss(logits.reshape(-1), targets.reshape(-1))
+                    loss_nms = mm.replicated(ap_loss(
+                        whole_batch(logits).reshape(-1),
+                        whole_batch(targets).reshape(-1)))
                 else:
                     has_fg = fg_sel.any(1)
-                    loss_nms = torch.where(has_fg, ap_loss(logits, targets),
-                                           0.0).sum() / has_fg.sum().clamp_min(1)
+                    loss_nms = mm.ratio(torch.where(
+                        has_fg, ap_loss(logits, targets), 0.0).sum(),
+                        has_fg.sum())
             elif cfg.after_nms_loss_mode == "classify":
                 n_pos = torch.where(fg_sel, targets_after, 0.0).sum()
                 n_neg = fg_sel.sum() - n_pos
+                n_pos, n_neg = global_counts(mm.ctx, n_pos, n_neg)
                 w_neg = torch.where(
                     (n_pos > 0) & (n_neg > 0),
                     (n_pos / n_neg.clamp_min(1.0)) ** 0.25, 1.0)
                 bce = _bce(scores_after, targets_after)
                 bce = bce * torch.where(targets_after == 0, w_neg, 1.0)
-                loss_nms = _masked_mean(bce, fg_sel)
+                loss_nms = mm(bce, fg_sel)
             elif cfg.after_nms_loss_mode == "regress":
-                loss_nms = _masked_mean(_abs(scores_after - targets_after),
+                loss_nms = mm(_abs(scores_after - targets_after),
                                         fg_sel)
             else:
                 raise NotImplementedError(cfg.after_nms_loss_mode)
@@ -499,20 +655,18 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
     any_fg = fg_num > 0
     if cfg.bbox_2d_lambda:
         l2d = _smooth_l1(bbox_2d, t2d_n).sum(-1)
-        loss_2d = torch.where(
-            any_fg, _masked_mean(l2d, fg_sel) * cfg.bbox_2d_lambda, 0.0)
+        loss_2d = _where(any_fg, mm(l2d, fg_sel) * cfg.bbox_2d_lambda, 0.0)
         total = total + loss_2d
         stats["bbox_2d"] = loss_2d
 
     ious_2d = elementwise_iou(coords_2d, coords_2d_tar)
-    stats["iou_2d"] = _masked_mean(ious_2d.detach(), fg_sel)
+    stats["iou_2d"] = mm(ious_2d.detach(), fg_sel)
     x3d_d, y3d_d, z3d_d = raw3d[:3]
     cen_dist = torch.sqrt((x3d_d - x3d_tar) ** 2 + (y3d_d - y3d_tar) ** 2
                           + (z3d_d - z3d_tar) ** 2)
-    stats["cen_dist"] = _masked_mean(cen_dist, fg_sel)
-    stats["z_err"] = _masked_mean((z3d_d - z3d_tar).abs(), fg_sel)
-    stats["rot_err"] = _masked_mean((rot_raw_snap - raw3[..., 6]).abs(),
-                                    fg_sel)
+    stats["cen_dist"] = mm(cen_dist, fg_sel)
+    stats["z_err"] = mm((z3d_d - z3d_tar).abs(), fg_sel)
+    stats["rot_err"] = mm((rot_raw_snap - raw3[..., 6]).abs(), fg_sel)
 
     if cfg.bbox_3d_lambda:
         terms = [_smooth_l1(bbox_3d[..., i], t3d_n[..., i]) for i in range(6)]
@@ -522,10 +676,10 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
             terms.append(torch.where(axis_tar == 1, l_rsin, l_rcos))
             l_axis = _bce(bbox_3d[..., 8], axis_tar)
             l_head = _bce(bbox_3d[..., 9], head_tar)
-            stats["acc_axis"] = _masked_mean(
+            stats["acc_axis"] = mm(
                 ((bbox_3d[..., 8].detach() >= 0.5) == (axis_tar == 1)).float(),
                 fg_sel)
-            stats["acc_head"] = _masked_mean(
+            stats["acc_head"] = mm(
                 ((bbox_3d[..., 9].detach() >= 0.5) == (head_tar == 1)).float(),
                 fg_sel)
         else:
@@ -553,17 +707,18 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         # self-balancing lambda from the un-weighted 3D loss magnitude
         dynamic = cfg.bbox_un_dynamic and accept_prob is not None
         if dynamic:
-            init = sum(_masked_mean(t, fg_sel) for t in terms) \
-                * cfg.bbox_3d_lambda
+            init = sum(mm(t, fg_sel) for t in terms) * cfg.bbox_3d_lambda
             if l_axis is not None:
-                init = init + (_masked_mean(l_axis, fg_sel) +
-                               _masked_mean(l_head, fg_sel)) \
+                init = init + (mm(l_axis, fg_sel) + mm(l_head, fg_sel)) \
                     * cfg.bbox_axis_head_lambda
-            init = init.detach()
             n_new = (un_state.n + 1).clamp_max(100)
-            lam_new = torch.where(un_state.n == 0, init,
-                                  init / n_new + un_state.lam * (n_new - 1) / n_new)
-            new_state = UncertaintyState(lam=lam_new, n=n_new)
+
+            def lam(g):
+                init_v = _ev(init, g)
+                return torch.where(un_state.n == 0, init_v, init_v / n_new
+                                   + un_state.lam * (n_new - 1) / n_new)
+            lam_new = _global(_Deferred(lam))
+            new_state = (lam_new, n_new)
             un_lambda = lam_new
         else:
             un_lambda = cfg.bbox_un_lambda
@@ -575,35 +730,32 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
                 l_axis, l_head = l_axis * accept_prob, l_head * accept_prob
             if l_vel is not None:
                 l_vel = l_vel * accept_prob
-            stats["conf"] = _masked_mean(accept_prob.detach(), fg_sel)
+            stats["conf"] = mm(accept_prob.detach(), fg_sel)
 
-        loss_3d = sum(_masked_mean(t, fg_sel) for t in terms)
+        loss_3d = sum(mm(t, fg_sel) for t in terms)
         if l_vel is not None:
-            stats["vel"] = _masked_mean(l_vel, vel_ok)
-            stats["vel_num"] = vel_ok.sum().float()
+            stats["vel"] = mm(l_vel, vel_ok)
+            stats["vel_num"] = mm.summed(vel_ok.sum().float())
             loss_3d = loss_3d + stats["vel"]
         if l_axis is not None:
-            loss_3d = loss_3d + (_masked_mean(l_axis, fg_sel) +
-                                 _masked_mean(l_head, fg_sel)) \
+            loss_3d = loss_3d + (mm(l_axis, fg_sel) + mm(l_head, fg_sel)) \
                 * cfg.bbox_axis_head_lambda
-        loss_3d = torch.where(any_fg, loss_3d * cfg.bbox_3d_lambda, 0.0)
+        loss_3d = _where(any_fg, loss_3d * cfg.bbox_3d_lambda, 0.0)
         total = total + loss_3d
         stats["bbox_3d"] = loss_3d
 
         # (1 - confidence) regulariser with the (possibly dynamic) lambda
         if accept_prob is not None and (cfg.bbox_un_dynamic or
                                         cfg.bbox_un_lambda > 0):
-            loss_un = torch.where(
-                any_fg, _masked_mean(1.0 - accept_prob, fg_sel) * un_lambda,
-                0.0)
+            loss_un = _where(
+                any_fg, mm(1.0 - accept_prob, fg_sel) * un_lambda, 0.0)
             total = total + loss_un
             stats["un"] = loss_un
 
     if cfg.iou_2d_lambda:
         l_iou = -torch.log(_clip(ious_2d, 1e-12, 1.0))
-        loss_iou = torch.where(
-            any_fg,
-            _masked_mean(l_iou, fg_sel & (ious_2d > 0)) * cfg.iou_2d_lambda,
+        loss_iou = _where(
+            any_fg, mm(l_iou, fg_sel & (ious_2d > 0)) * cfg.iou_2d_lambda,
             0.0)
         total = total + loss_iou
         stats["iou_2d_loss"] = loss_iou
@@ -611,4 +763,10 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
     stats["total"] = total
     stats["fg_num"] = fg_num.float()
     stats["bg_num"] = bg_num.float()
-    return total, stats, new_state
+    get = mm.getter()
+    stats = {k: _ev(v, get.glob) for k, v in stats.items()}
+    loss = stats["total"] if get.glob is get else _ev(total, get)
+    if new_state is not un_state:
+        new_state = UncertaintyState(lam=_ev(new_state[0], get),
+                                     n=new_state[1])
+    return loss, stats, new_state

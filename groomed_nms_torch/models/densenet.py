@@ -60,11 +60,20 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     **biased** batch variance (torch's own update uses the unbiased one,
     n/(n-1) times larger), both in f32.  The output is normalised with the
     batch statistics, as in torch.  Eval mode is ``nn.BatchNorm2d``'s.
+
+    With ``process_group`` set (``parallel.wrap_model`` sets it when the
+    world is larger than one) the batch is the global one: the statistics
+    of every rank's rows, as flax's under a sharded ``jit`` (see
+    ``_global_forward``).
     """
+
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_forward(x)
         # the batch mean and 1/sqrt(var + eps) come from the same pass that
         # normalises (f32 for bf16 inputs too); var is recovered from them
         out, mean, invstd = torch.native_batch_norm(
@@ -76,6 +85,41 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(m * var)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _global_forward(self, x):
+        """Train mode over the global batch: each channel's sum, sum of
+        squares and count reduced over the ranks in one differentiable
+        ``all_reduce`` (in f32, f64 for an f64 input), then flax's fast
+        variance ``E[x^2] - E[x]^2`` clipped at 0, the output
+        ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in that dtype
+        cast to x's, and the running statistics' EMA of the global mean and
+        biased variance, the variance recovered from the f32 rsqrt as
+        ``forward`` recovers it.  Every rank gets the same sums, so its
+        statistics stay identical to the others'."""
+        from ..parallel.dist import all_reduce
+
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dtype)
+        dims = (0, 2, 3)
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=dtype,
+                           device=x.device)
+        sums = all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                     count]), self.process_group)
+        c = x.shape[1]
+        n = sums[2 * c]
+        mean = sums[:c] / n
+        var = (sums[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + self.eps)
+        shape = (1, c, 1, 1)
+        out = (xf - mean.view(shape)) * (invstd * self.weight).view(shape) \
+            + self.bias.view(shape)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean.float())
+            self.running_var.mul_(1.0 - m).add_(
+                m * (invstd.float().pow(-2) - self.eps))
+            self.num_batches_tracked.add_(1)
+        return out.to(x.dtype)
 
 
 def _bn(c, cfg):

@@ -85,9 +85,12 @@ def bbox_transform_3d(ex_rois_2d, ex_rois_3d, gt_rois, decomp_alpha=False,
     return torch.cat([targets, tail], dim=-1)
 
 
-def bbox_transform_inv(boxes, deltas, means=None, stds=None):
+def bbox_transform_inv(boxes, deltas, means=None, stds=None,
+                       max_log_scale=None):
     """Decode [dx, dy, dw, dh] deltas against corner anchors ``boxes``,
-    de-normalising with ``stds`` then ``means`` when given."""
+    de-normalising with ``stds`` then ``means`` when given.
+    ``max_log_scale`` caps the de-normalised dw and dh before ``exp`` (no
+    cap by default, as JAX's decode)."""
     cx, cy, w, h = center_size(boxes)
     dx, dy, dw, dh = deltas.unbind(-1)
     if stds is not None:
@@ -95,6 +98,8 @@ def bbox_transform_inv(boxes, deltas, means=None, stds=None):
     if means is not None:
         dx, dy = dx + means[0], dy + means[1]
         dw, dh = dw + means[2], dh + means[3]
+    if max_log_scale is not None:
+        dw, dh = dw.clamp(max=max_log_scale), dh.clamp(max=max_log_scale)
     pred_cx = dx * w + cx
     pred_cy = dy * h + cy
     pred_w = torch.exp(dw) * w

@@ -28,6 +28,7 @@ import re
 import torch
 
 from ..losses.rpn_3d import UncertaintyState
+from ..parallel.dist import barrier
 
 _NAME = re.compile(r"checkpoint_(\d+)\.pt")
 log = logging.getLogger(__name__)
@@ -47,12 +48,21 @@ def _steps(output_dir):
 
 
 def save_checkpoint(output_dir, model, optimizer=None, step=0, un_state=None,
-                    max_keep=None):
+                    max_keep=None, dist=None):
     """Write ``model``'s (and ``optimizer``'s, and the self-balancing
     lambda's) state as snapshot ``step``; returns the path.  The file
     appears whole or not at all.  ``max_keep`` keeps only that many of the
-    newest snapshots."""
+    newest snapshots.  Under a process group (``dist``, a
+    ``parallel.Dist``) rank 0 writes and every rank returns once it has:
+    the ranks hold the same state, and none reads a snapshot before it is
+    whole."""
     path = checkpoint_path(output_dir, step)
+    if dist is not None and dist.group is not None:
+        if dist.rank == 0:
+            save_checkpoint(output_dir, model, optimizer, step, un_state,
+                            max_keep)
+        barrier(dist)
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {"step": int(step), "model": model.state_dict(),
                "optimizer": optimizer.state_dict() if optimizer is not None

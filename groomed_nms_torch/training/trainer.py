@@ -19,6 +19,18 @@
   the loss on each clip's current frame.
 * ``fuse_preprocess``: uint8 frames (or clips) + mirror flags -> the step,
   with the photometric jitter keyed by the step (``jitter_draws``).
+
+Data parallelism (``parallel.dist``): with ``dist``, a ``Dist`` of world W,
+each process holds its rows of the global batch and the step computes what
+one process computes on the whole batch (JAX's ``shard_train_step``): the
+model runs as ``TrainState.ddp`` (``wrap_model``: BatchNorm on the global
+batch's statistics, gradients averaged over the ranks), the loss is this
+rank's share of the global loss scaled by W (``rpn_3d_loss(dist=...)``),
+so the averaged gradient is the global loss's, and the jitter is drawn
+for the global batch.  With ``batch_skip > 1`` every micro-step's gradient
+is reduced before the optimizer clips the running sum (no ``no_sync``):
+the clip is element-wise and nonlinear, so the sum it clips must already be
+the global one.
 """
 
 from __future__ import annotations
@@ -32,7 +44,9 @@ import torch
 
 from ..data.augment import (PhotometricDraws, photometric_draws,
                             preprocess_images, preprocess_images_train)
-from ..losses.rpn_3d import GTBatch, LossConfig, UncertaintyState, rpn_3d_loss
+from ..losses.rpn_3d import (GTBatch, LossConfig, UncertaintyState,
+                             accept_head_trained, rpn_3d_loss)
+from ..parallel.dist import local_rows
 
 SOLVERS = ("sgd", "adam", "adamax")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -179,17 +193,37 @@ def build_optimizer(params, solver_type="sgd", lr_schedule=None,
 class TrainState:
     """What a train step updates in place: the model (parameters and
     BatchNorm statistics), the optimizer, the self-balancing lambda and the
-    step count."""
+    step count.  ``ddp``, when set, is ``model`` wrapped by
+    ``parallel.wrap_model``: the step runs its forward through it."""
 
     model: torch.nn.Module
     optimizer: Any
     un_state: UncertaintyState
     step: int = 0
+    ddp: Any = None
+
+
+def unused_parameters(model, loss_cfg):
+    """The names of ``model``'s trainable parameters that the loss's
+    gradient does not reach (``parallel.wrap_model``'s ``ignore``): the
+    video model's pose branch (its step's loss reads the current frames
+    only) and an acceptance head the loss does not read
+    (``accept_head_trained``).  Their gradient is None in every step."""
+    video = hasattr(model, "pose_net")
+    rpn = model.rpn if video else model
+    prefixes = ("pose_net.",) if video else ()
+    if not accept_head_trained(
+            loss_cfg, rpn.config.acceptance_prob_mode == "classify"):
+        prefixes += tuple(f"{'rpn.' if video else ''}{name}."
+                          for name, _ in rpn.named_children()
+                          if name.startswith("accept"))
+    return [name for name, p in model.named_parameters()
+            if p.requires_grad and name.startswith(prefixes)]
 
 
 def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
                     bbox_stds, compute_dtype=None, on_stage=None,
-                    train_bn=True, frozen_stats=()):
+                    train_bn=True, frozen_stats=(), dist=None):
     """Build ``train_step(state, batch) -> stats``.
 
     ``batch`` holds 'images' [B, 3, H, W] (normalised, on the model's
@@ -207,6 +241,9 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
     them as they are (every statistic frozen); ``frozen_stats``, names of
     ``running_mean`` / ``running_var`` buffers, keeps those unchanged
     through a train-mode step while the rest update.
+
+    ``dist`` (a ``parallel.Dist``): the batch is this rank's rows of the
+    global batch; the stats are the global batch's (module docstring).
     """
     def extract(out, batch):
         return {"cls": out.cls, "prob": out.prob, "bbox_2d": out.bbox_2d,
@@ -216,12 +253,12 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
 
     return _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds,
                       compute_dtype, on_stage, train_bn, frozen_stats,
-                      extract)
+                      extract, dist)
 
 
 def make_video_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
                           bbox_stds, compute_dtype=None, on_stage=None,
-                          train_bn=True, frozen_stats=()):
+                          train_bn=True, frozen_stats=(), dist=None):
     """``make_train_step`` for ``models/video.py::VideoRPN3D``.
 
     ``batch['images']`` is a clip [B, F, 3, H, W], frame F-1 the current
@@ -248,16 +285,17 @@ def make_video_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
 
     return _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds,
                       compute_dtype, on_stage, train_bn, frozen_stats,
-                      extract)
+                      extract, dist)
 
 
 def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
-               on_stage, train_bn, frozen_stats, extract):
+               on_stage, train_bn, frozen_stats, extract, dist):
     """The step body ``make_train_step`` and ``make_video_train_step``
     share; ``extract(out, batch)`` maps the model's output to the loss's
     outputs dict."""
     mark = on_stage if on_stage is not None else (lambda stage: None)
     frozen_stats = tuple(frozen_stats)
+    world = dist.world if dist is not None and dist.active else 1
 
     def train_step(state: TrainState, batch):
         model = state.model
@@ -271,7 +309,7 @@ def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
             pinned = [buffers[k] for k in frozen_stats]
             saved = [b.clone() for b in pinned]
         with amp:
-            out = model(images)
+            out = (model if state.ddp is None else state.ddp)(images)
         if pinned is not None:
             with torch.no_grad():
                 torch._foreach_copy_(pinned, saved)
@@ -279,10 +317,16 @@ def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
         gt = GTBatch(*(batch[name] for name in GTBatch._fields))
         loss, stats, state.un_state = rpn_3d_loss(
             extract(out, batch), rois, rois_3d, gt, bbox_means, bbox_stds,
-            state.un_state, loss_cfg)
+            state.un_state, loss_cfg, dist=dist)
         mark("loss")
         state.optimizer.zero_grad()
-        loss.backward()
+        (loss * world if world > 1 else loss).backward()
+        for name, p in getattr(state.ddp, "ignored_params", {}).items():
+            if p.grad is not None:
+                raise RuntimeError(
+                    f"{name} is in DDP's ignore list (unused_parameters) "
+                    "but the loss reached it: its gradient would not be "
+                    "reduced over the ranks")
         mark("backward")
         state.optimizer.step()
         mark("optimizer")
@@ -305,7 +349,8 @@ def jitter_draws(rng_seed, step, b, distort_prob):
 
 
 def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
-                    distort_prob=0.0, rng_seed=0, out_dtype=None, video=False):
+                    distort_prob=0.0, rng_seed=0, out_dtype=None, video=False,
+                    dist=None):
     """Fold the device-side preprocess into the step: the returned
     ``fused(state, raw)`` takes the loader's batch, ``{'images_u8': [B, H0,
     W0, 3] uint8, 'mirror': [B] bool, **GTBatch fields}``, resizes, crops or
@@ -323,7 +368,13 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
     mirror flag repeated for its F frames (a mirrored sample flips its
     whole clip), then shaped [B, F, 3, H, W].  Clips are not jittered, as
     in JAX.
+
+    With ``dist`` the frames are this rank's rows of the global batch: the
+    jitter is drawn for the global batch and the rank takes its rows
+    (``local_rows``), so each frame gets the draw one process gives it.
     """
+    world = dist.world if dist is not None and dist.active else 1
+
     def fused(state, raw):
         u8, mirror = raw["images_u8"], raw["mirror"]
         if video:
@@ -333,8 +384,11 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
                 image_stds, target_h=target_h, crop_w=crop_w,
                 out_dtype=out_dtype).unflatten(0, (b, f))
         elif distort_prob > 0:
-            draws = jitter_draws(rng_seed, state.step, u8.shape[0],
+            draws = jitter_draws(rng_seed, state.step, u8.shape[0] * world,
                                  distort_prob)
+            if world > 1:
+                rows = local_rows(u8.shape[0] * world, dist.rank, world)
+                draws = PhotometricDraws(*(t[rows] for t in draws))
             if u8.is_cuda:
                 draws = PhotometricDraws(*(t.pin_memory() for t in draws))
             images = preprocess_images_train(

@@ -3,6 +3,8 @@
 Usage:
   python scripts/evaluate_torch.py --config groomed_nms [--restore N] \
       [--data-root data] [--output output] [--batch 8] [--device cuda]
+  python -m torch.distributed.run --nproc_per_node 4 \
+      scripts/evaluate_torch.py --config groomed_nms [--dist-backend nccl] ...
 
 The port's twin of ``scripts/test.py``: restores the port's checkpoint
 (``output/<name>/weights/checkpoint_<step>.pt``, written by
@@ -14,6 +16,14 @@ given, and raises when CUDA is absent or the PNG unfilter does not build.
 ``--set compute_dtype=bfloat16`` runs the model under bf16 autocast;
 ``--refine`` refines each detection's depth and yaw by the hill-climb of
 ``inference.refine_detections``.
+
+Under torchrun each rank evaluates its rows of every batch of ``--batch``
+frames (``test_kitti_3d(dist=...)``, the twin of JAX's batch sharding;
+the batch must divide by the world) on ``cuda:<LOCAL_RANK>`` (nccl) or a
+shared card or the CPU (gloo), and rank 0 runs the evaluator once every
+rank's files are written.  ``--num-shards`` / ``--shard-index`` split the
+images over independent processes instead, each writing its share into
+one results directory (shard 0 scores the union); the two do not combine.
 """
 
 import argparse
@@ -65,6 +75,10 @@ def parse_args(argv=None):
                          "values are parsed as Python literals")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="under torchrun: nccl (the default on cards, one "
+                         "card a rank) or gloo (the CPU; ranks sharing a "
+                         "card)")
     return ap.parse_args(argv)
 
 
@@ -78,6 +92,27 @@ def main(argv=None):
 
     import torch
 
+    from groomed_nms_torch.parallel import close_distributed, init_distributed
+
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to "
+                           "evaluate on the CPU")
+    ctx = init_distributed(args.dist_backend, args.device)
+    try:
+        if ctx.group is not None and args.num_shards > 1:
+            raise ValueError("--num-shards splits the images over separate "
+                             "processes; under torchrun the ranks split "
+                             "them: pass one or the other")
+        return _evaluate(args, ctx)
+    finally:
+        close_distributed(ctx)
+
+
+def _evaluate(args, ctx):
+    """``main`` on this rank (``ctx``, a ``parallel.Dist``)."""
+    import torch
+
     from groomed_nms_torch.anchors import locate_anchors
     from groomed_nms_torch.config import apply_overrides, load_config
     from groomed_nms_torch.data.imdb import build_imdb
@@ -89,10 +124,7 @@ def main(argv=None):
     from groomed_nms_torch.ops import _build
     from groomed_nms_torch.training.checkpoint import restore_checkpoint
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to "
-                           "evaluate on the CPU")
+    device = ctx.device
     _build.png_unfilter_lib()          # a failed build raises here
 
     cfg = apply_overrides(load_config(args.config), args.overrides)
@@ -104,7 +136,9 @@ def main(argv=None):
     results_dir = os.path.join(out_dir, "results", f"results_{tag}")
     os.makedirs(os.path.join(results_dir, "data"), exist_ok=True)
     logging.basicConfig(
-        force=True, level=logging.INFO, format="%(asctime)s %(message)s")
+        force=True, level=logging.INFO if ctx.rank == 0 else logging.WARNING,
+        format="%(asctime)s %(message)s" if ctx.group is None
+        else f"%(asctime)s [rank {ctx.rank}] %(message)s")
     log = logging.getLogger(__name__)
     log.info("torch %s on %s", torch.__version__,
              torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -148,7 +182,7 @@ def main(argv=None):
         gt_dir=gt_dir, batch_size=args.batch, log_fn=log.info,
         skip_eval=args.skip_eval or sharded, refine=args.refine,
         raw_cache_dir=os.path.join(root, args.split, ".decoded_cache")
-        if args.cache_images else None)
+        if args.cache_images else None, dist=ctx)
 
     if sharded:
         # barrier: shard 0 scores only once every shard has marked its

@@ -4,6 +4,8 @@ Usage:
   python scripts/train_torch.py --config groomed_nms [--restore N] \
       [--data-root data] [--output output] [--max-iter N] [--fresh] \
       [--set KEY=VALUE ...] [--cache-images] [--device cuda]
+  python -m torch.distributed.run --nproc_per_node 4 \
+      scripts/train_torch.py --config groomed_nms [--dist-backend nccl] ...
 
 The port's twin of ``scripts/train.py``, for the still-image models
 (``rpn_3d``, and ``rpn_3d_un``, whose ``RPN3D`` predicts the uncertainty
@@ -36,6 +38,21 @@ the warm start fills ``rpn`` from the ``_un`` checkpoint of
 ``VideoTrainLoader`` -> ``device_prefetch`` -> the video step, whose loss
 reads each clip's current frame.  Its snapshot evaluation is skipped:
 ``scripts/test_kalman_torch.py`` evaluates the video model.
+
+Data parallelism (the twin of ``scripts/train.py``'s mesh): under torchrun
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) each process is a rank on
+``cuda:<LOCAL_RANK>`` (``--dist-backend nccl``, the default on cards) or on
+the CPU or a shared card (``gloo``); ``cfg.batch_size`` is the global batch
+and must divide by the world.  The loader gives each rank its rows of the
+global batch (the same draws on every rank); the still-image and video
+steps run under ``DistributedDataParallel`` with the global batch's
+BatchNorm statistics and loss (``parallel``, ``trainer``), so the ranks
+train as one process on the global batch.  Rank 0 writes ``conf.json``,
+``train.log``, ``metrics.csv``, the imdb cache, ``anchors.npz`` and the
+checkpoints while the others wait; every rank reads a restore or a warm
+start; the snapshot evaluation is sharded over the ranks and rank 0 runs
+the evaluator.  The summary carries ``world``, ``rank`` and every rank's
+``peak_bytes``.
 
 It runs on the CUDA card unless ``--device cpu`` is given, and raises when
 CUDA is absent.  ``main(argv)`` returns a summary dict (steps, times, the
@@ -85,15 +102,24 @@ def parse_args(argv=None):
                          ".decoded_cache (H*W*3 bytes of disk a frame)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="under torchrun: nccl (the default on cards, one "
+                         "card a rank) or gloo (the CPU; ranks sharing a "
+                         "card)")
     return ap.parse_args(argv)
 
 
-def build_training(cfg, anchors, means, stds, device, param_dtype=None):
+def build_training(cfg, anchors, means, stds, device, param_dtype=None,
+                   dist=None):
     """The model (seeded with ``cfg.rng_seed``), the freezing, the
     optimizer over the trainable parameters and the fused step, on
     ``device``.  Returns a namespace: model, optimizer, schedule, state
     (``TrainState``), step (``fused(state, raw)``), rois, rois_3d,
     n_frozen, train_bn, frozen_stats.
+
+    ``dist``, a ``parallel.Dist`` with a process group: the step takes
+    this rank's rows of the global batch and ``state.ddp`` is the model
+    under ``DistributedDataParallel`` (``parallel.wrap_model``).
 
     ``param_dtype`` torch.float64 runs the model, the loss's inputs and the
     optimizer in f64 (the frames are preprocessed in f32 and cast): an
@@ -107,6 +133,7 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
     from groomed_nms_torch.losses.rpn_3d import UncertaintyState
     from groomed_nms_torch.models.rpn_3d import RPN3D
     from groomed_nms_torch.models.video import VideoConfig, VideoRPN3D
+    from groomed_nms_torch.parallel import wrap_model
     from groomed_nms_torch.training.freeze import (all_stats_frozen,
                                                    apply_freeze,
                                                    build_freeze_labels,
@@ -116,7 +143,8 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
                                                     build_optimizer,
                                                     fuse_preprocess,
                                                     make_train_step,
-                                                    make_video_train_step)
+                                                    make_video_train_step,
+                                                    unused_parameters)
     from groomed_nms_torch.utils.weights import init_weights
 
     device = torch.device(device)
@@ -161,7 +189,7 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
     make_step = make_video_train_step if video else make_train_step
     step = make_step(cfg.loss_config(), dev(rois), dev(rois_3d), dev(means),
                      dev(stds), compute_dtype, train_bn=train_bn,
-                     frozen_stats=frozen_stats)
+                     frozen_stats=frozen_stats, dist=dist)
     fused = fuse_preprocess(step, dev(cfg.image_means, torch.float32),
                             dev(cfg.image_stds, torch.float32),
                             target_h=cfg.crop_size[0],
@@ -169,8 +197,11 @@ def build_training(cfg, anchors, means, stds, device, param_dtype=None):
                             distort_prob=cfg.distort_prob,
                             rng_seed=cfg.rng_seed,
                             out_dtype=None if param_dtype == torch.float32
-                            else param_dtype, video=video)
+                            else param_dtype, video=video, dist=dist)
     state = TrainState(model, optimizer, UncertaintyState.init(device))
+    if dist is not None and dist.group is not None:
+        state.ddp = wrap_model(model, dist, ignore=unused_parameters(
+            model, cfg.loss_config()))
     return SimpleNamespace(model=model, optimizer=optimizer,
                            schedule=schedule, state=state, step=fused,
                            rois=rois, rois_3d=rois_3d, n_frozen=n_frozen,
@@ -238,6 +269,24 @@ def main(argv=None):
 
     import torch
 
+    from groomed_nms_torch.parallel import close_distributed, init_distributed
+
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to "
+                           "train on the CPU")
+    ctx = init_distributed(args.dist_backend, args.device)
+    try:
+        return _train(args, ctx)
+    finally:
+        close_distributed(ctx)
+
+
+def _train(args, ctx):
+    """``main`` on this rank (``ctx``, a ``parallel.Dist``)."""
+    import torch
+    import torch.distributed
+
     from groomed_nms_torch.config import apply_overrides, load_config
     from groomed_nms_torch.data.imdb import build_imdb
     from groomed_nms_torch.data.pipeline import (ClipRecordView,
@@ -248,16 +297,24 @@ def main(argv=None):
                                                  resolve_stats_dir)
     from groomed_nms_torch.data.tracking import build_tracking_imdb
     from groomed_nms_torch.eval.tester import test_kitti_3d
+    from groomed_nms_torch.parallel import barrier
     from groomed_nms_torch.training.checkpoint import (latest_checkpoint,
                                                        restore_train_state,
                                                        save_checkpoint)
     from groomed_nms_torch.training.stats import MetricsCSV, StatTracker
 
-    device = torch.device(args.device)
+    device = ctx.device
     cuda = device.type == "cuda"
-    if cuda and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass --device cpu to "
-                           "train on the CPU")
+    lead = ctx.rank == 0
+
+    def rank0_first(fn):
+        """fn() on rank 0, then on the others once it is done (what rank 0
+        writes to disk, the others read)."""
+        if lead:
+            out = fn()
+        barrier(ctx)
+        return out if lead else fn()
+
     cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.max_iter:
         cfg = dataclasses.replace(cfg, max_iter=args.max_iter)
@@ -265,37 +322,46 @@ def main(argv=None):
 
     out_dir = os.path.join(args.output, cfg.name)
     os.makedirs(out_dir, exist_ok=True)
+    # rank 0 logs (and writes train.log); the others say only what goes wrong
     logging.basicConfig(
-        force=True, level=logging.INFO, format="%(asctime)s %(message)s",
-        handlers=[logging.StreamHandler(),
-                  logging.FileHandler(os.path.join(out_dir, "train.log"))])
+        force=True, level=logging.INFO if lead else logging.WARNING,
+        format="%(asctime)s %(message)s" if ctx.group is None
+        else f"%(asctime)s [rank {ctx.rank}] %(message)s",
+        handlers=[logging.StreamHandler()] + (
+            [logging.FileHandler(os.path.join(out_dir, "train.log"))]
+            if lead else []))
     log = logging.getLogger("train_torch")
-    log.info("torch %s on %s", torch.__version__,
-             torch.cuda.get_device_name(device) if cuda else "cpu")
-    cfg.dump(os.path.join(out_dir, "conf.json"))
+    log.info("torch %s on %s%s", torch.__version__,
+             torch.cuda.get_device_name(device) if cuda else "cpu",
+             f", {ctx.world} ranks ({ctx.backend})" if ctx.group is not None
+             else "")
+    if lead:
+        cfg.dump(os.path.join(out_dir, "conf.json"))
 
     root = os.path.join(args.data_root, cfg.dataset_train)
     if is_video:
-        imdb = [ClipRecordView(r) for r in build_tracking_imdb(
-            root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
-            cache_file=os.path.join(out_dir, "imdb.pkl"), im_ext=cfg.im_ext)]
+        imdb = [ClipRecordView(r) for r in rank0_first(
+            lambda: build_tracking_imdb(
+                root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
+                cache_file=os.path.join(out_dir, "imdb.pkl"),
+                im_ext=cfg.im_ext))]
     else:
-        imdb = build_imdb(root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
-                          cache_file=os.path.join(out_dir, "imdb.pkl"),
-                          im_ext=cfg.im_ext)
+        imdb = rank0_first(lambda: build_imdb(
+            root, "training", use_3d_for_2d=cfg.use_3d_for_2d,
+            cache_file=os.path.join(out_dir, "imdb.pkl"), im_ext=cfg.im_ext))
     log.info("imdb: %d images", len(imdb))
 
     stats_dir = resolve_stats_dir(cfg, out_dir)
     if stats_dir != out_dir:
         log.info("copy_stats: reusing anchors/statistics from %s", stats_dir)
     t0 = time.perf_counter()
-    anchors, means, stds = prepare_anchors(cfg, imdb, cache_dir=stats_dir,
-                                           device=device)
+    anchors, means, stds = rank0_first(lambda: prepare_anchors(
+        cfg, imdb, cache_dir=stats_dir, device=device))
     anchors_s = time.perf_counter() - t0
     log.info("anchors: %s, means/stds ready in %.2f s", anchors.shape,
              anchors_s)
 
-    run = build_training(cfg, anchors, means, stds, device)
+    run = build_training(cfg, anchors, means, stds, device, dist=ctx)
     state = run.state
     if run.n_frozen:
         log.info("freezing %d/%d param tensors", run.n_frozen,
@@ -350,7 +416,7 @@ def main(argv=None):
             log_fn=log.info,
             raw_cache_dir=os.path.join(val_root, "validation",
                                        ".decoded_cache")
-            if args.cache_images else None)
+            if args.cache_images else None, dist=ctx)
         run.model.train(run.train_bn)
         return result
 
@@ -360,7 +426,8 @@ def main(argv=None):
                    step_end_s=[], eval_results={}, eval_s=0.0,
                    launches={"train": dict.fromkeys(KERNELS, 0),
                              "eval": dict.fromkeys(KERNELS, 0)},
-                   batch_size=cfg.batch_size, peak_bytes=None)
+                   batch_size=cfg.batch_size, peak_bytes=None,
+                   world=ctx.world, rank=ctx.rank)
     if start >= cfg.max_iter:
         log.info("training done at iter %d", state.step)
         summary["step"] = state.step
@@ -369,9 +436,11 @@ def main(argv=None):
     cache_dir = os.path.join(root, "training", ".decoded_cache") \
         if args.cache_images else None
     loader = (VideoTrainLoader if is_video else TrainLoader)(
-        imdb, cfg, seed=cfg.rng_seed, raw_cache_dir=cache_dir)
+        imdb, cfg, seed=cfg.rng_seed, raw_cache_dir=cache_dir,
+        rank=ctx.rank, world=ctx.world)
     tracker = StatTracker(cfg.max_iter, cfg.display, start_iter=start)
-    metrics_csv = MetricsCSV(os.path.join(out_dir, "metrics.csv"))
+    metrics_csv = MetricsCSV(os.path.join(out_dir, "metrics.csv")) \
+        if lead else None
     batches = device_prefetch(host_tensors(loader, pin=cuda), device)
 
     t_loop = time.perf_counter()
@@ -401,7 +470,8 @@ def main(argv=None):
                 line, window = tracker.log_line_and_means(
                     it + 1, lr=run.schedule(it))
                 log.info(line)
-                metrics_csv.append(it + 1, window)
+                if lead:
+                    metrics_csv.append(it + 1, window)
                 tracker.reset()
             if (it + 1) == cfg.max_iter:
                 # stop the workers: the final evaluation gets the host
@@ -413,7 +483,8 @@ def main(argv=None):
                 t_out = time.perf_counter()
                 summary["train_s"] = t_out - t_loop - outside
                 path = save_checkpoint(out_dir, run.model, run.optimizer,
-                                       state.step, un_state=state.un_state)
+                                       state.step, un_state=state.un_state,
+                                       dist=ctx)
                 log.info("checkpoint -> %s", path)
                 if cfg.do_test:
                     before = _launches()
@@ -429,6 +500,11 @@ def main(argv=None):
         loader.close()
     if cuda:
         summary["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if ctx.group is not None:
+        peaks = [None] * ctx.world
+        torch.distributed.all_gather_object(peaks, summary["peak_bytes"],
+                                            group=ctx.group)
+        summary["peak_bytes_by_rank"] = peaks
     log.info("training done at iter %d", state.step)
     summary["step"] = state.step
     return summary

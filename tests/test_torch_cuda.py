@@ -1205,3 +1205,18 @@ def test_roi_align_and_losses_on_cuda_match_cpu(cuda):
             res.append((v.detach().cpu(), x.grad.cpu()))
         for g, w in zip(res[1], res[0]):
             torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_two_ranks_sharing_the_card_match_one_process(cuda):
+    """Data parallelism on the card: the still-image step (GrooMeD-NMS in
+    the loss, BatchNorm perturbed, two micro-steps of ``batch_skip`` 2) of
+    2 ranks sharing it (gloo on CUDA tensors) against one process on the
+    global batch, f64: every tensor within 1e-9 of its largest magnitude,
+    the ranks' parameters and running statistics identical."""
+    from groomed_nms_torch.parallel.dryrun import step_parity
+
+    worst, key, same, _, rank_stats, one_stats = step_parity(
+        2, cuda, torch.float64)
+    assert same, "the ranks' parameters or running statistics differ"
+    assert worst <= 1e-9, f"{key} off by {worst:.3e} of its max"
+    assert rank_stats[0][-1]["fg_num"] == one_stats[-1]["fg_num"] > 0

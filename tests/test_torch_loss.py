@@ -337,7 +337,8 @@ def _outputs(xp, heads, classify):
     return out
 
 
-def _run_both(name, overrides, gt_seed=7, n_gt=(6, 5), ign=(1, 0)):
+def _run_both(name, overrides, gt_seed=7, n_gt=(6, 5), ign=(1, 0),
+              tweak=None):
     jcfg = dataclasses.replace(jax_load_config(name).loss_config(),
                                **overrides)
     tcfg = dataclasses.replace(load_config(name).loss_config(), **overrides)
@@ -346,6 +347,8 @@ def _run_both(name, overrides, gt_seed=7, n_gt=(6, 5), ign=(1, 0)):
     rois, rois_3d = _rois(vel)
     gt = _gt_batch(gt_seed, n_gt, ign, vel)
     heads = _heads(11, tcfg)
+    if tweak is not None:                       # edits the heads in place
+        tweak(heads, rois, gt)
     classify = tcfg.acceptance_prob_mode == "classify"
     means = np.zeros(13 + vel, np.float32)
     stds = np.ones(13 + vel, np.float32)
@@ -413,6 +416,42 @@ def test_rpn_3d_loss_image_without_gt_has_finite_gradients():
     for k, g in tgrads.items():
         assert torch.isfinite(g).all(), k
         _close(g, jgrads[k], rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=k)
+
+
+def test_rpn_3d_loss_gradient_finite_where_a_box_overflows():
+    """A row the masks leave out, its 2D dw at 100 so that exp overflows
+    f32: JAX's gradient is NaN on that row (0 * inf in the masked IoU's
+    backward); the port caps the log-scale (``MAX_LOG_SCALE``), its
+    gradients are finite, 0 on that row and JAX's everywhere else, and its
+    stats are JAX's."""
+    row = {}
+
+    def overflow(heads, rois, gt):
+        # the anchor of image 0 that overlaps none of its GTs
+        a, g = rois[:, :4], gt["gts_2d"][0][gt["gt_valid"][0]]
+        ix = np.minimum(a[:, None, 2], g[:, 2]) - np.maximum(a[:, None, 0],
+                                                             g[:, 0])
+        iy = np.minimum(a[:, None, 3], g[:, 3]) - np.maximum(a[:, None, 1],
+                                                             g[:, 1])
+        r = int(np.argmin((np.maximum(ix, 0) * np.maximum(iy, 0)).max(1)))
+        heads["bbox_2d"][0, r, 2] = 100.0
+        row["r"] = r
+
+    (jstats, _, jgrads), (tstats, _, tgrads) = _run_both(
+        "groomed_nms", {}, tweak=overflow)
+    r = row["r"]
+    jbad = ~np.isfinite(np.asarray(jgrads["bbox_2d"]))
+    assert jbad[0, r].any() and jbad.sum() == jbad[0, r].sum()
+    for k in jstats:
+        _close(tstats[k], jstats[k], rtol=STATS_RTOL, atol=STATS_ATOL,
+               err_msg=k)
+    for k, g in tgrads.items():
+        assert torch.isfinite(g).all(), k
+        j = np.asarray(jgrads[k])
+        ok = np.isfinite(j)
+        _close(g.numpy()[ok], j[ok], rtol=GRAD_RTOL, atol=GRAD_ATOL,
+               err_msg=k)
+    assert (tgrads["bbox_2d"][0, r] == 0).all()
 
 
 @pytest.mark.parametrize("overrides", [

@@ -38,7 +38,8 @@ def test_package_imports_without_jax():
     assert len(mods) >= 24
     assert {f"groomed_nms_torch.{m}" for m in (
         "ops.refine", "ops.nms", "ops.roi_align", "ops.iou3d_exact",
-        "losses.ranknet", "losses.custom_loss")} <= mods
+        "losses.ranknet", "losses.custom_loss", "parallel",
+        "parallel.dist", "parallel.dryrun", "data.matfile")} <= mods
 
 
 @pytest.mark.parametrize("script,argv", [
@@ -58,6 +59,34 @@ def test_serving_scripts_import_without_jax(script, argv):
         "spec.loader.exec_module(mod)\n"
         f"mod.parse_args({argv!r})\n"
         "import groomed_nms_torch.export\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', 'matplotlib'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("train_torch", ["--config", "groomed_nms", "--dist-backend", "gloo"]),
+    ("evaluate_torch", ["--config", "groomed_nms", "--dist-backend", "nccl"]),
+    ("train_pose_torch", ["--config", "kitti_3d_full"]),
+    ("test_kalman_torch", ["--config", "kitti_3d_full"]),
+    ("flagship_repeat_torch", ["--runs", "2"]),
+])
+def test_torch_scripts_import_without_jax(script, argv):
+    """The train, evaluate, pose and tracking entry points and the bf16
+    loop's repeat script, imported with their arguments parsed and the
+    package's parallel layer loaded, pull in none of the modules the GPU
+    machine lacks."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', "
+        f"{os.path.join(ROOT, 'scripts', script + '.py')!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        f"mod.parse_args({argv!r})\n"
+        "import groomed_nms_torch.parallel.dryrun\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', 'matplotlib'))\n"
         "assert not bad, bad\n")
