@@ -224,13 +224,34 @@ Phases, in order; any failure raises and exits non-zero:
                 counted on every run of (c) and (d) and held at 0; each
                 torchrun's time split (start, imports, main(), the
                 profiler's digest, exit) printed;
- 19. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+ 19. remat and tools -- (a) build_flagship_train at batch 8, 512x1760,
+                bf16 with backbone_remat none, layer and epilogue from the
+                same weights and batch: the first step's loss identical to
+                the none run's, every gradient within REMAT_GRAD_REL of its
+                tensor's max, the running statistics and
+                num_batches_tracked identical, K3 and the grouping once a
+                step; each mode's ms/step (TIMED steps after WARMUP) and
+                peak memory, in turns; (b) scripts/profile_torch.py's
+                main() in both modes into a temporary directory: the trace
+                parses, K1 and K2 once a batch and K3 and the grouping once
+                a step in it; (c) analysis/bench_latency_torch.py at
+                batches 1 and 8; (d) analysis/bench_groomed_nms_torch.py at
+                N = 1000, its check against the plain versions first; (e)
+                analysis/roofline_train_torch.py in train mode (also with
+                --remat layer) and infer mode at batch 8, its guard
+                untripped; (f) analysis/bench_loader_torch.py on phase 13's
+                tree; (g) analysis/compare_video_training_schemes_torch.py
+                --iters 4 --batch 2 into a temporary file, every value
+                finite or null; each part's kernel launches counted (K4 held
+                at 0);
+ 20. the kernels JSON line (K1 and K2 with a "video" entry each: the check
      at the video path's shape, its times and bound, and its launches; K1,
      K2, K3 and the grouping with an "export" entry: their launches through
      the detection artifacts of phase 16, K1's and K2's through one video
      clip; K1 and K2 with an "options" entry: their launches in the
      --refine run, K3 and the grouping: in the jittered run; each kernel
-     with a "parallel" entry: its launches a rank on phase 18's paths),
+     with a "parallel" entry: its launches a rank on phase 18's paths; each
+     kernel with a "tools" entry: its launches in each part of phase 19),
      then the last line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
 numpy and groomed_nms_torch only.  ``chip_smoke.py --rank-worker SCRIPT DIR
@@ -269,6 +290,8 @@ from groomed_nms_torch.models.rpn_3d import RPN3D
 from groomed_nms_torch.ops import _build, kernels
 from groomed_nms_torch.ops.groomed_nms import groomed_nms_boxes
 from groomed_nms_torch.ops.iou import pairwise_iou
+from groomed_nms_torch.utils.measure import (PEAK_BF16, PEAK_F32, bound,
+                                             card_line)
 from groomed_nms_torch.utils.weights import init_weights
 
 K1_SHAPE = (8, 126720, 18)            # 32 x 110 x 36 anchors, bf16 head
@@ -309,19 +332,11 @@ GROUP_SIZES = (-1, 0, 1, 100)
 # (measured on the CPU), so two backends cannot agree on it to 1e-4
 
 TRAIN_RTOL, TRAIN_ATOL, TRAIN_PARAM_REL = 1e-3, 1e-5, 1e-4
-# the H100 SXM's published peaks (dense, 700 W): bf16 tensor-core FLOP/s,
-# f32 FLOP/s outside the tensor cores, device-memory bytes/s
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# the card's peaks, card_line and bound are groomed_nms_torch/utils/
+# measure.py's, shared with the tools
 # f32 operations of K1 per logit (exp, sum, max, divide); an IoU test's are
 # kernels.IOU_TEST_OPS
 HEAD_OPS = 4
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps, flush):
@@ -369,15 +384,6 @@ def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev):
             t(rs.uniform(0.5, 1.5, (layers, bw))),
             t(rs.normal(0, 0.2, (layers, bw))),
             t(rs.normal(size=(layers, growth, 9 * bw)) / np.sqrt(9 * bw)))
-
-
-def bound(ops, nbytes, peak_ops):
-    """The least time of a kernel's work on the card, (ms, limiter): the
-    larger of its operations over ``peak_ops`` and its bytes (each input read
-    once, each output written once) over the memory rate."""
-    ops_ms, bytes_ms = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
-        (bytes_ms, "bytes")
 
 
 def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev):
@@ -2510,14 +2516,21 @@ OPTION_REPEAT = 3                     # phase 12's tree repeated for img/s
 JITTER_STEPS, SOFT_NMS_N = 8, 1000
 
 
-def load_script(name):
-    """``scripts/<name>.py`` of this checkout as a module."""
+def load_tool(relpath):
+    """``relpath`` (a script under scripts/ or analysis/) of this checkout
+    as a module."""
     import importlib.util
+    name = os.path.splitext(os.path.basename(relpath))[0]
     spec = importlib.util.spec_from_file_location(name, os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py"))
+        os.path.dirname(os.path.abspath(__file__)), relpath))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_script(name):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    return load_tool(os.path.join("scripts", name + ".py"))
 
 
 def refine_check(dets, valid, p2, p2_inv, dev, stamp):
@@ -3264,6 +3277,180 @@ def parallel_phase(dev, stamp):
             "dryrun_eval_launches": dry["ranks"][0]["eval_launches"]}
 
 
+# backbone rematerialisation and the tool twins (phase 19): the flagship
+# step with backbone_remat none, layer and epilogue from the same weights
+# and batch (the forward is the same, so the first loss is identical; the
+# gradients within REMAT_GRAD_REL of each tensor's max, bf16 backward
+# kernels summing in other orders; the running statistics identical), then
+# each tool twin's main() at the flagship's width
+REMAT_MODES = (False, "layer", "epilogue")
+REMAT_GRAD_REL = 1e-2
+PHASE19_KERNELS = ("fused_head_scores", "greedy_nms", "fused_iou_prune",
+                   "group_leaders", "dense_block_eval")
+
+
+def tool_launches(fn):
+    """(fn's result, each kernel's launches while it ran)."""
+    return count_launches(fn, PHASE19_KERNELS)
+
+
+def remat_step_check(stamp):
+    """(a): one step of each remat mode from the same weights and batch,
+    checked against the none run, then 3 warm-up + TIMED steps of each in
+    turns (none, layer, epilogue and back): ms/step and peak memory.
+    Returns {mode: {ms, peak_gb, launches}}."""
+    runs = {}
+    for mode in REMAT_MODES:
+        step, state, batch = build_flagship_train(device="cuda",
+                                                  backbone_remat=mode)
+        stats, launches = tool_launches(lambda: step(state, batch))
+        assert launches["fused_iou_prune"] == launches["group_leaders"] == 1, \
+            f"remat {mode}: expected one K3 and one grouping launch a step, " \
+            f"got {launches}"
+        runs[mode] = dict(step=step, state=state, batch=batch,
+                          loss=float(stats["total"]), launches=launches,
+                          grads={n: p.grad.clone() for n, p in
+                                 state.model.named_parameters()},
+                          buffers={k: v.clone() for k, v in
+                                   state.model.named_buffers()})
+    ref = runs[False]
+    for mode in REMAT_MODES[1:]:
+        r = runs[mode]
+        grad_err = max(((r["grads"][n] - g).abs().max() / g.abs().max()).item()
+                       for n, g in ref["grads"].items() if g.abs().max() > 0)
+        same_buffers = all(torch.equal(r["buffers"][k], v)
+                           for k, v in ref["buffers"].items())
+        print(f"remat (a) {mode}: first step's loss {r['loss']:.6f} vs none "
+              f"{ref['loss']:.6f}; max gradient err / max {grad_err:.3e} "
+              f"(tol {REMAT_GRAD_REL:g}); running statistics and "
+              f"num_batches_tracked identical {same_buffers}; launches "
+              f"{r['launches']}", flush=True)
+        assert r["loss"] == ref["loss"], f"remat {mode}: the loss differs"
+        assert grad_err <= REMAT_GRAD_REL, f"remat {mode}: gradients differ"
+        assert same_buffers, f"remat {mode}: running statistics differ"
+    for r in runs.values():
+        r.pop("grads")
+        for p in r["state"].model.parameters():
+            p.grad = None
+    n_img = ref["batch"]["images_u8"].shape[0]
+    timed = {mode: [] for mode in REMAT_MODES}
+    for mode in REMAT_MODES + REMAT_MODES[::-1]:
+        r = runs[mode]
+        for _ in range(WARMUP):
+            r["step"](r["state"], r["batch"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(TIMED):
+            r["step"](r["state"], r["batch"])
+        torch.cuda.synchronize()
+        timed[mode].append(((time.perf_counter() - t0) / TIMED * 1e3,
+                            torch.cuda.max_memory_allocated() / 1e9))
+    out = {}
+    for mode, rows in timed.items():
+        name = mode or "none"
+        out[name] = dict(ms=[ms for ms, _ in rows],
+                         peak_gb=[gb for _, gb in rows],
+                         launches=runs[mode]["launches"])
+        print(f"remat (a) {name}: batch {n_img}, 512x1760 bf16, {TIMED} "
+              f"steps after {WARMUP}, two turns: "
+              f"{', '.join(f'{ms:.2f}' for ms, _ in rows)} ms/step, peak "
+              f"memory {', '.join(f'{gb:.2f}' for _, gb in rows)} GB {stamp}",
+              flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def tools_phase(dev, stamp):
+    """Phase 19 (see the module docstring).  Returns {"remat": (a)'s
+    table, "launches": {part: {kernel: launches}}}."""
+    t_phase = time.perf_counter()
+    launches = {}
+    remat = remat_step_check(stamp)
+    launches["remat"] = {k: sum(v["launches"][k] for v in remat.values())
+                         for k in PHASE19_KERNELS}
+
+    # (b) scripts/profile_torch.py, both modes, into a temporary directory
+    profile = load_tool("scripts/profile_torch.py")
+    iters = 3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as d:
+        for mode, want in (("infer", ("fused_head_scores", "greedy_nms")),
+                           ("train", ("fused_iou_prune", "group_leaders"))):
+            res, n = tool_launches(lambda: profile.main(
+                ["--mode", mode, "--out", d, "--iters", str(iters)]))
+            launches[f"profile_{mode}"] = n
+            with open(res["trace"]) as f:
+                json.load(f)                     # the trace parses
+            got = {k: res["trace_kernels"][k] for k in want}
+            print(f"tools (b) profile_torch --mode {mode}: {iters} calls, "
+                  f"device kernels in the trace {res['trace_kernels']}, "
+                  f"launches a call {res['launches_per_call']} {stamp}",
+                  flush=True)
+            assert got == {k: iters for k in want}, \
+                f"profile {mode}: expected {want} once a call, got {got}"
+
+    # (c) analysis/bench_latency_torch.py
+    rows, launches["latency"] = tool_launches(lambda: load_tool(
+        "analysis/bench_latency_torch.py").main(
+            ["--batches", "1", "8", "--iters", "10"]))
+    print(f"tools (c) bench_latency_torch: {json.dumps(rows)} {stamp}",
+          flush=True)
+
+    # (d) analysis/bench_groomed_nms_torch.py at N = 1000 (checked first)
+    gb, launches["groomed_bench"] = tool_launches(lambda: load_tool(
+        "analysis/bench_groomed_nms_torch.py").main(["1000"]))
+    assert gb["launches_per_call"]["group_leaders"] == 1, gb
+    print(f"tools (d) bench_groomed_nms_torch: {json.dumps(gb)} {stamp}",
+          flush=True)
+
+    # (e) analysis/roofline_train_torch.py: train, train --remat layer, infer
+    roof = {}
+    rt = load_tool("analysis/roofline_train_torch.py")
+    for name, argv in (("train", ["--mode", "train"]),
+                       ("train_remat_layer", ["--mode", "train", "--remat",
+                                              "layer"]),
+                       ("infer", ["--mode", "infer"])):
+        roof[name], launches[f"roofline_{name}"] = tool_launches(
+            lambda: rt.main([*argv, "--iters", str(TIMED)]))
+    print(f"tools (e) roofline_train_torch: {json.dumps(roof)}", flush=True)
+
+    # (f) analysis/bench_loader_torch.py on phase 13's tree
+    loader, _ = tool_launches(lambda: load_tool(
+        "analysis/bench_loader_torch.py").main(
+            ["--data-root", os.path.join(TRAIN_DIR, "data"), "--iters", "10",
+             "--warmup", "2"]))
+
+    # (g) analysis/compare_video_training_schemes_torch.py
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_schemes_") as d:
+        t0 = time.perf_counter()
+        path = load_tool("analysis/compare_video_training_schemes_torch.py"
+                         ).main(["--iters", "4", "--batch", "2", "--out",
+                                 os.path.join(d, "schemes.json")])
+        with open(path) as f:
+            schemes = json.load(f)
+    finite = all(v is None or np.isfinite(v) for m in schemes.values()
+                 for v in m.values())
+    print(f"tools (g) compare_video_training_schemes_torch --iters 4 --batch "
+          f"2 in {time.perf_counter() - t0:.1f} s: {json.dumps(schemes)}; "
+          f"finite or null {finite} {stamp}", flush=True)
+    assert set(schemes) == {"direct", "fused", "untrained"} and finite
+
+    for part, n in launches.items():
+        assert n["dense_block_eval"] == 0, f"{part} launched K4"
+    for part in ("profile_infer", "latency", "roofline_infer"):
+        assert launches[part]["fused_head_scores"] > 0 and \
+            launches[part]["greedy_nms"] > 0, f"{part}: no K1 or K2 launch"
+    for part in ("remat", "profile_train", "roofline_train",
+                 "roofline_train_remat_layer", "groomed_bench"):
+        assert launches[part]["fused_iou_prune"] > 0 and \
+            launches[part]["group_leaders"] > 0, f"{part}: no K3 or grouping"
+    print(f"tools: launches by part {json.dumps(launches)}; loader "
+          f"{json.dumps(loader)}; phase 19 in "
+          f"{time.perf_counter() - t_phase:.1f} s {stamp}", flush=True)
+    return dict(remat=remat, launches=launches)
+
+
 def main():
     # -- 1. device ----------------------------------------------------------
     if not torch.cuda.is_available():
@@ -3584,8 +3771,9 @@ def main():
     export_launches, export_video = export_phase(dev, stamp)
     options = options_phase(dev, flush, stamp, stage2_rate)
     parallel = parallel_phase(dev, stamp)
+    tools = tools_phase(dev, stamp)
 
-    # -- 19. results ----------------------------------------------------------
+    # -- 20. results ----------------------------------------------------------
     # bounds at the timed shapes: K1 reads the bf16 head and the f32
     # acceptance and writes f32 scores; K2 tests each pair of rows once and
     # moves boxes, scores and keep (its times on the main path's own input,
@@ -3602,7 +3790,7 @@ def main():
     k4_bytes = sum(kernels.dense_block_work(*s[:-1])[1]
                    for s in K4_BLOCKS.values())
     k4_bound = bound(k4_ops, k4_bytes, PEAK_BF16)
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:146",
@@ -3680,7 +3868,11 @@ def main():
              "train_rank_launches_per_step"]["group_leaders"],
              "dryrun_train_launches_a_rank":
              parallel["dryrun_train_launches"]["group_leaders"]}},
-    ]}))
+    ]
+    for entry in entries:            # launches in each part of phase 19
+        entry["tools"] = {part: n[entry["name"]]
+                          for part, n in tools["launches"].items()}
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

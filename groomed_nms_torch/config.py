@@ -5,9 +5,8 @@ experiment name of the repository's ``configs/`` package (ablations
 included), written by ``scripts/dump_torch_configs.py``.  ``ExperimentConfig``
 has exactly the fields of those files, so every file loads 1:1; the typed
 sub-configs for the model, the loss and the detection layers are derived
-from it.  Fields the PyTorch package does not read yet (data, the JAX
-runtime's remat knobs) are kept so that one file describes the whole
-experiment.
+from it.  Fields the PyTorch package does not read are kept so that one
+file describes the whole experiment.
 """
 
 from __future__ import annotations
@@ -26,6 +25,23 @@ from .models.densenet import DenseNetConfig, tiny_densenet_config
 from .models.rpn_3d import RPNConfig
 
 CONFIG_DIR = Path(__file__).resolve().parent / "configs"
+
+
+def with_remat(cfg: DenseNetConfig, remat) -> DenseNetConfig:
+    """``cfg`` with the ``backbone_remat`` value ``remat`` mapped onto
+    ``remat_layers`` / ``remat_epilogue`` as the JAX config maps it;
+    ``ValueError`` for any other value."""
+    if remat in (False, None, "none", ""):
+        layers, epilogue = False, False
+    elif remat in (True, "layer", "layers"):
+        layers, epilogue = True, False
+    elif remat == "epilogue":
+        layers, epilogue = False, True
+    else:
+        raise ValueError(f"backbone_remat={remat!r}: expected "
+                         "False/'none', True/'layer', or 'epilogue'")
+    return dataclasses.replace(cfg, remat_layers=layers,
+                               remat_epilogue=epilogue)
 
 
 @dataclass(frozen=True)
@@ -159,6 +175,9 @@ class ExperimentConfig:
     # backbone
     backbone_tiny: bool = False
     compute_dtype: str = "float32"            # or "bfloat16" (autocast)
+    # recompute backbone activations in a training step's backward pass:
+    # False/"none", True/"layer" (whole dense layers) or "epilogue" (each
+    # layer's BN2 -> ReLU -> conv2 tail; see DenseNetConfig.remat_layers)
     backbone_remat: object = False
 
     @property
@@ -186,7 +205,8 @@ class ExperimentConfig:
         # slow_bn overrides it, as in the reference
         momentum = self.slow_bn if self.slow_bn else 0.1
         cfg = tiny_densenet_config() if self.backbone_tiny else DenseNetConfig()
-        return dataclasses.replace(cfg, bn_momentum=momentum)
+        return with_remat(dataclasses.replace(cfg, bn_momentum=momentum),
+                          self.backbone_remat)
 
     def rpn_config(self, num_anchors: int) -> RPNConfig:
         return RPNConfig(

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .anchors import generate_anchor_templates, locate_anchors
-from .config import load_config
+from .config import load_config, with_remat
 from .eval.tester import make_infer
 from .losses.rpn_3d import UncertaintyState
 from .models.fast_eval import (KERNEL_BLOCKS, FastEvalRPN3D,
@@ -117,7 +117,8 @@ def build_flagship(batch=8, height=512, width=1760, device="cuda",
 
 def build_flagship_train(batch=8, height=512, width=1760, device="cuda",
                          compute_dtype=torch.bfloat16, seed=0, src_hw=SRC_HW,
-                         on_stage=None, backbone=None, batch_skip=None):
+                         on_stage=None, backbone=None, batch_skip=None,
+                         backbone_remat=False):
     """One GrooMeD-NMS training step of the flagship on ``device``.
 
     The ``groomed_nms`` config: the loss with GrooMeD-NMS on the top 512
@@ -137,16 +138,21 @@ def build_flagship_train(batch=8, height=512, width=1760, device="cuda",
     change of the whole update, so two devices cannot agree closely on one
     step).  ``batch_skip`` (None: the config's, 1) accumulates that many
     steps' clipped gradients before each optimizer update.
+    ``backbone_remat`` is the config's (False/"none", "layer" or
+    "epilogue"), the counterpart of ``_flagship_train(remat=...)``: it
+    recomputes dense layers, or their tails, in the backward pass.
 
     Returns ``(step, state, batch)``: ``step(state, batch)`` preprocesses
     the frames (odd images mirrored), takes one step, updates ``state`` in
     place and returns the stats dict.
     """
     device = torch.device(device)
-    ecfg = load_config("groomed_nms")
+    ecfg = dataclasses.replace(load_config("groomed_nms"),
+                               backbone_remat=backbone_remat)
     rpn_cfg = ecfg.rpn_config(NUM_ANCHORS)
     if backbone is not None:
-        rpn_cfg = dataclasses.replace(rpn_cfg, backbone=backbone)
+        rpn_cfg = dataclasses.replace(
+            rpn_cfg, backbone=with_remat(backbone, backbone_remat))
     model = RPN3D(rpn_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device, memory_format=torch.channels_last)

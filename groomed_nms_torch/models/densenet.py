@@ -11,16 +11,21 @@ The compute dtype is not part of the module: run it under
 ``torch.autocast`` for bf16, with the input and the module in
 ``channels_last`` on the GPU.  BatchNorm keeps f32 parameters and statistics
 and, in train mode, updates them as flax does (``FlaxBatchNorm2d``).
+``remat_layers`` / ``remat_epilogue`` recompute whole dense layers, or only
+their BN2 -> ReLU -> conv2 tail, in the backward pass of a training step
+(``torch.utils.checkpoint``), as flax's ``nn.remat`` does in the JAX trunk.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -37,6 +42,13 @@ class DenseNetConfig:
     # transitions after blocks 0..n-2; True = 2x2 avg-pool stride 2
     transition_pool: Sequence[bool] = (True, True, False)
     bn_momentum: float = 0.1             # torch convention: the batch weight
+    # recompute each dense layer in the backward pass of a training step
+    # instead of saving its activations (a peak-memory knob): the whole
+    # layer, or only its BN2 -> ReLU -> 3x3 conv tail, whose input (the
+    # 128-wide bottleneck output) is saved either way.  Parameter and
+    # buffer names are unchanged; eval, no_grad and export see no change
+    remat_layers: bool = False
+    remat_epilogue: bool = False
 
     @property
     def out_features(self) -> int:
@@ -65,9 +77,15 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     world is larger than one) the batch is the global one: the statistics
     of every rank's rows, as flax's under a sharded ``jit`` (see
     ``_global_forward``).
+
+    A rematerialised layer's recomputation sets ``recomputing`` (see
+    ``_recompute``): the output is recomputed, the running statistics are
+    not updated a second time, as flax's ``nn.remat`` updates
+    ``batch_stats`` once.
     """
 
     process_group = None
+    recomputing = False
 
     def forward(self, x):
         if not self.training:
@@ -78,6 +96,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         # normalises (f32 for bf16 inputs too); var is recovered from them
         out, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.recomputing:
+            return out
         with torch.no_grad():
             m = self.momentum
             var = invstd.float().pow(-2) - self.eps
@@ -95,7 +115,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         cast to x's, and the running statistics' EMA of the global mean and
         biased variance, the variance recovered from the f32 rsqrt as
         ``forward`` recovers it.  Every rank gets the same sums, so its
-        statistics stay identical to the others'."""
+        statistics stay identical to the others'.  A recomputation
+        all-reduces again (the same sums on every rank, so the calls stay
+        matched): one more collective a recomputed BatchNorm."""
         from ..parallel.dist import all_reduce
 
         dtype = torch.promote_types(x.dtype, torch.float32)
@@ -113,6 +135,8 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         shape = (1, c, 1, 1)
         out = (xf - mean.view(shape)) * (invstd * self.weight).view(shape) \
             + self.bias.view(shape)
+        if self.recomputing:
+            return out.to(x.dtype)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean.float())
@@ -126,8 +150,33 @@ def _bn(c, cfg):
     return FlaxBatchNorm2d(c, eps=1e-5, momentum=cfg.bn_momentum)
 
 
+@contextlib.contextmanager
+def _recompute(norms):
+    """The context of a checkpointed region's recomputation: its
+    BatchNorms normalise without updating their running statistics."""
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
+def _checkpointed(fn, x, norms):
+    """``fn(x)`` with its activations recomputed in the backward pass
+    instead of saved (non-reentrant: autocast and the RNG state are
+    restored for the recomputation)."""
+    return checkpoint(fn, x, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), _recompute(norms)))
+
+
 class DenseLayer(nn.Module):
-    """BN -> ReLU -> 1x1 conv -> BN -> ReLU -> 3x3 conv (dilated)."""
+    """BN -> ReLU -> 1x1 conv -> BN -> ReLU -> 3x3 conv (dilated).
+
+    In a training step (train mode, gradients on) ``cfg.remat_layers``
+    recomputes the whole layer in the backward pass and
+    ``cfg.remat_epilogue`` its BN2 -> ReLU -> conv2 tail only."""
 
     def __init__(self, in_features, cfg: DenseNetConfig, dilation):
         super().__init__()
@@ -137,10 +186,26 @@ class DenseLayer(nn.Module):
         self.norm2 = _bn(width, cfg)
         self.conv2 = nn.Conv2d(width, cfg.growth_rate, 3, padding=dilation,
                                dilation=dilation, bias=False)
+        self.remat = ("layer" if cfg.remat_layers else
+                      "epilogue" if cfg.remat_epilogue else None)
+
+    def _bottleneck(self, x):
+        return self.conv1(F.relu(self.norm1(x)))
+
+    def _epilogue(self, h):
+        return self.conv2(F.relu(self.norm2(h)))
+
+    def _layer(self, x):
+        return self._epilogue(self._bottleneck(x))
 
     def forward(self, x):
-        h = self.conv1(F.relu(self.norm1(x)))
-        return self.conv2(F.relu(self.norm2(h)))
+        if self.remat is None or not (self.training
+                                      and torch.is_grad_enabled()):
+            return self._layer(x)
+        if self.remat == "layer":
+            return _checkpointed(self._layer, x, (self.norm1, self.norm2))
+        return _checkpointed(self._epilogue, self._bottleneck(x),
+                             (self.norm2,))
 
 
 class Transition(nn.Module):

@@ -1220,3 +1220,44 @@ def test_two_ranks_sharing_the_card_match_one_process(cuda):
     assert same, "the ranks' parameters or running statistics differ"
     assert worst <= 1e-9, f"{key} off by {worst:.3e} of its max"
     assert rank_stats[0][-1]["fg_num"] == one_stats[-1]["fg_num"] > 0
+
+
+@pytest.mark.parametrize("remat", ["layer", "epilogue"])
+def test_remat_step_on_cuda_matches_no_remat(cuda, remat):
+    """``build_flagship_train(backbone_remat=...)`` on the card, the tiny
+    backbone at 64x128, f32 with TF32 off, one step from the same seed as
+    the run without remat: the loss identical (the forward is the same),
+    each parameter within 1e-5 of its tensor's largest magnitude, the
+    running statistics and ``num_batches_tracked`` identical, K3 and the
+    grouping kernel once in the step."""
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for mode in (False, remat):
+            step, state, batch = build_flagship_train(
+                batch=2, height=64, width=128, src_hw=(48, 96), device=cuda,
+                compute_dtype=None, backbone=tiny_densenet_config(),
+                backbone_remat=mode)
+            k3, group = (kernels.fused_iou_prune.launches,
+                         kernels.group_leaders.launches)
+            stats = step(state, batch)
+            torch.cuda.synchronize()
+            assert (kernels.fused_iou_prune.launches - k3,
+                    kernels.group_leaders.launches - group) == (1, 1)
+            runs[mode] = (float(stats["total"]), {
+                k: v.detach().cpu().clone()
+                for k, v in state.model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert state.model.backbone.denseblock1_layer1.remat == remat
+    (loss0, sd0), (loss1, sd1) = runs[False], runs[remat]
+    assert loss1 == loss0
+    for k, v in sd0.items():
+        if "running" in k or "num_batches" in k:
+            assert torch.equal(sd1[k], v), k
+        elif v.is_floating_point() and v.abs().max() > 0:
+            err = (sd1[k] - v).abs().max().item()
+            assert err <= 1e-5 * v.abs().max().item(), f"{k} off by {err}"

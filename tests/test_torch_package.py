@@ -73,20 +73,40 @@ def test_serving_scripts_import_without_jax(script, argv):
     ("train_pose_torch", ["--config", "kitti_3d_full"]),
     ("test_kalman_torch", ["--config", "kitti_3d_full"]),
     ("flagship_repeat_torch", ["--runs", "2"]),
+    # the tool twins; a name with a directory lies there, not in scripts/
+    ("profile_torch", ["--mode", "train"]),
+    ("make_synthetic_kitti_torch", ["--root", "data", "--video"]),
+    ("determine_seqs_torch", ["--root", "data", "--ids", "val.txt"]),
+    ("analysis/bench_latency_torch", ["--batches", "1", "8"]),
+    ("analysis/bench_groomed_nms_torch", ["1000", "20"]),
+    ("analysis/roofline_train_torch", ["--remat", "layer"]),
+    ("analysis/bench_loader_torch", ["--synthetic", "8"]),
+    ("analysis/compare_video_training_schemes_torch", ["--iters", "4"]),
+    ("analysis/detection_stats_torch", ["--results", "r", "--gt", "g"]),
 ])
 def test_torch_scripts_import_without_jax(script, argv):
-    """The train, evaluate, pose and tracking entry points and the bf16
-    loop's repeat script, imported with their arguments parsed and the
-    package's parallel layer loaded, pull in none of the modules the GPU
-    machine lacks."""
+    """The train, evaluate, pose and tracking entry points, the bf16
+    loop's repeat script and the tool twins, imported with their arguments
+    parsed and the package's parallel layer and measurement helpers loaded,
+    pull in none of the modules the GPU machine lacks: they are blocked
+    (an import of one raises) and none is in ``sys.modules``."""
+    path = os.path.join(ROOT, *(script if "/" in script
+                                else "scripts/" + script).split("/")) + ".py"
     code = (
-        "import importlib.util, sys\n"
-        f"spec = importlib.util.spec_from_file_location('s', "
-        f"{os.path.join(ROOT, 'scripts', script + '.py')!r})\n"
+        "import importlib.abc, importlib.util, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', "
+        "'matplotlib')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"spec = importlib.util.spec_from_file_location('s', {path!r})\n"
         "mod = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(mod)\n"
         f"mod.parse_args({argv!r})\n"
         "import groomed_nms_torch.parallel.dryrun\n"
+        "import groomed_nms_torch.utils.measure\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', 'matplotlib'))\n"
         "assert not bad, bad\n")

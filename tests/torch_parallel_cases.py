@@ -12,14 +12,16 @@ fused preprocess's keywords (None: the batch holds normalised NCHW
 
 import numpy as np
 import torch
+import torch.distributed
 
+from groomed_nms_torch.config import with_remat
 from groomed_nms_torch.losses.rpn_3d import (GTBatch, LossConfig,
                                              UncertaintyState, rpn_3d_loss)
 from groomed_nms_torch.models.densenet import (FlaxBatchNorm2d,
                                                tiny_densenet_config)
 from groomed_nms_torch.models.rpn_3d import RPN3D, RPNConfig
 from groomed_nms_torch.models.video import VideoConfig, VideoRPN3D
-from groomed_nms_torch.parallel import Dist, local_rows, wrap_model
+from groomed_nms_torch.parallel import Dist, dryrun, local_rows, wrap_model
 from groomed_nms_torch.training.schedules import build_lr_schedule
 from groomed_nms_torch.training.trainer import (TrainState, build_optimizer,
                                                 fuse_preprocess,
@@ -31,7 +33,8 @@ MEANS, STDS = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
 def build_model(case):
-    rpn = RPNConfig(backbone=tiny_densenet_config(), **case["rpn"])
+    rpn = RPNConfig(backbone=with_remat(tiny_densenet_config(),
+                                        case.get("remat")), **case["rpn"])
     return VideoRPN3D(VideoConfig(rpn=rpn)) if case["video"] else RPN3D(rpn)
 
 
@@ -152,6 +155,43 @@ def rank_cases(ctx, cases, bn_spec, loss_specs):
            for name, (case, dtype) in cases.items()}
     out["batchnorm"] = batchnorm_case(bn_spec, ctx)
     out["losses"] = [loss_case(spec, ctx) for spec in loss_specs]
+    return out
+
+
+def remat_ranks(ctx, modes):
+    """The dryrun's GrooMeD step (acceptance, jitter, a global batch of 8)
+    in f64 for each ``backbone_remat`` mode of ``modes``, 2 steps, the
+    BatchNorm perturbed from one seed: {mode: run_case's result and the
+    ``torch.distributed.all_reduce`` calls of the run (DDP's buckets go
+    around it)}."""
+    setup = dryrun._setup(8)
+    rois = setup["rois"]
+    out = {}
+    for mode in modes:
+        case = dict(
+            rpn=dict(num_classes=4, num_anchors=dryrun.NUM_ANCHORS,
+                     prop_features=64, predict_acceptance_prob=True),
+            remat=mode, video=False, lr=0.004, rois=rois,
+            rois_3d=setup["priors"][rois[:, 4].astype(np.int64), 4:],
+            loss=dict(use_nms_in_loss=True, predict_acceptance_prob=True,
+                      max_nms_boxes=32, max_ap_boxes=64),
+            means=np.zeros(13), stds=np.ones(13), batch=setup["batch"],
+            fused=dict(target_h=dryrun.B_H, crop_w=dryrun.B_W,
+                       distort_prob=0.5, rng_seed=0), steps=2)
+        case["sd"] = {k: v.numpy().copy() for k, v in dryrun.perturb_batchnorm(
+            build_model(case), 3).state_dict().items()}
+        real, calls = torch.distributed.all_reduce, []
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+
+        torch.distributed.all_reduce = counted
+        try:
+            out[mode] = dict(run_case(case, torch.float64, ctx),
+                             all_reduces=len(calls))
+        finally:
+            torch.distributed.all_reduce = real
     return out
 
 
