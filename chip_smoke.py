@@ -29,18 +29,28 @@ Phases, in order; any failure raises and exits non-zero:
                 top-3000 rows of one batch, captured once; the sweep's time
                 grows with the rows kept): identical keep masks, times,
                 split;
-  6. K4     -- dense_block_eval against its plain version at the flagship's
-                block-1 [8, 64, 128, 440] -> 256 ch and block-2
-                [8, 128, 64, 220] -> 512 ch shapes, bf16, seeded input and
-                folded affines; relative errors, kernel and plain times,
-                TFLOP/s, the bound (kernels.dense_block_work at the card's
-                peaks) and the kernel's share of it, and as a yardstick the
-                block's 2L cuDNN convolutions alone at the same shapes;
+  6. K4     -- dense_block_eval against its plain version (TF32 off), in
+                bf16 and in f32, at DenseNet-121's four block shapes: the
+                flagship's kernel blocks 1 [8, 64, 128, 440] -> 256 ch and
+                2 [8, 128, 64, 220] -> 512 ch, and blocks 3
+                [8, 256, 32, 110] -> 1024 ch and 4 (dilation 2)
+                [8, 512, 32, 110] -> 1024 ch; seeded input and folded
+                affines; relative errors (bf16 also layer by layer from the
+                kernel's own inputs), kernel and plain times, TFLOP/s, the
+                bound (kernels.dense_block_work at the card's peaks; f32
+                products at 3xTF32's rate) and the kernel's share of it,
+                and as a yardstick the block's 2L cuDNN convolutions alone
+                at the same shapes in the same dtype;
   7. fast_eval -- the weight-folded engine: (a) on the card against the CPU
                 path at 2x64x128 bf16; (b) against the rpn3d engine at full
                 size from one RPN3D with perturbed BatchNorm statistics;
                 (c) the flagship through make_infer with engine="fast_eval",
                 timed: K4 twice per batch, K1 and K2 once; trunk breakdown;
+                (d) the f32 engine on the card against the CPU path at
+                2x64x128, TF32 off; (e) the f32 flagship (compute_dtype
+                None, as the shipped configs) through make_infer, fast_eval
+                beside rpn3d at each cuDNN TF32 setting, timed: K4 twice
+                per batch in fast_eval, K1 and K2 once;
   8. K3     -- fused_iou_prune against its plain version at the training
                 and test-time shape [8, 512, 4] (clustered boxes, padding
                 rows) for the three pruning methods, at the analysis shape
@@ -290,7 +300,8 @@ from groomed_nms_torch.models.rpn_3d import RPN3D
 from groomed_nms_torch.ops import _build, kernels
 from groomed_nms_torch.ops.groomed_nms import groomed_nms_boxes
 from groomed_nms_torch.ops.iou import pairwise_iou
-from groomed_nms_torch.utils.measure import (PEAK_BF16, PEAK_F32, bound,
+from groomed_nms_torch.utils.measure import (PEAK_BF16, PEAK_F32,
+                                             PEAK_F32_PRODUCTS, bound,
                                              card_line)
 from groomed_nms_torch.utils.weights import init_weights
 
@@ -301,15 +312,29 @@ KITTI_CLASSES = ["Car", "Pedestrian", "Cyclist"]
 # K4 at the flagship's kernel blocks: (B, c0, H, W, L, G, bw, dilation)
 K4_BLOCKS = {"block1": (8, 64, 128, 440, 6, 32, 128, 1),
              "block2": (8, 128, 64, 220, 12, 32, 128, 1)}
+# and at DenseNet-121's blocks 3-4, which fast_eval runs with K4 when asked
+K4_MORE_BLOCKS = {"block3": (8, 256, 32, 110, 24, 32, 128, 1),
+                  "block4": (8, 512, 32, 110, 16, 32, 128, 2)}
+K4_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # K4 vs its plain version over the new channels: max |err| / max |ref| and
 # mean |err| / mean |ref|; the two sum in other orders, so a bf16 rounding
-# of h or of an output may land one step (2^-8 relative) apart
+# of h or of an output may land one step (2^-8 relative) apart.  Held layer
+# by layer (each layer's plain version fed the kernel's own stack) at every
+# block, and over the whole block at the flagship's blocks 1-2: over more
+# layers a step in an early layer moves every later layer's inputs, and two
+# bf16 computations of 24 layers drift apart by more than one layer's steps
 K4_MAX_REL, K4_MEAN_REL = 1e-2, 1e-3
+# f32, over the whole block: products at f32 accuracy (3xTF32) summed in
+# other orders (a single TF32 product would be ~5e-4 off)
+K4_F32_MAX_REL, K4_F32_MEAN_REL = 1e-5, 1e-5
 # the fast_eval engine, fused_raw: max |err| / max |ref|, mean |err| / mean
 # |ref| (121 bf16 layers summed in other orders; against rpn3d also the
 # folded BatchNorm applied in bf16, where autocast applies it in f32), and
 # the acceptance probability's max |err| against the CPU path
 FE_MAX_REL, FE_MEAN_REL, FE_ACCEPT_ATOL = 0.05, 0.02, 0.02
+# the f32 engine on the card (TF32 off) against the CPU path: 121 f32
+# layers summed in other orders
+FE32_MAX_REL, FE32_MEAN_REL, FE32_ACCEPT_ATOL = 1e-4, 1e-4, 1e-4
 # K3: IoU and the linear prune bit-identical (the same f32 ops in the same
 # order, no FMA on either side); the sigmoid and exp of the other two
 # methods within 1e-6; the operator's rescored values within 1e-6 of the
@@ -367,14 +392,15 @@ def rel_err(got, ref):
             (err.mean() / ref.abs().mean()).item(), err.max().item())
 
 
-def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev):
-    """Seeded block input and K4's packed bf16 weights: folded affines with
-    mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal kernels."""
+def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev,
+                     dtype=torch.bfloat16):
+    """Seeded block input and K4's packed weights in ``dtype``: folded
+    affines with mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal
+    kernels."""
     cmax = c0 + layers * growth
 
     def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(
-            torch.bfloat16)
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
 
     x0 = t(rs.normal(size=(b, c0, h, w))).contiguous(
         memory_format=torch.channels_last)
@@ -386,17 +412,19 @@ def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev):
             t(rs.normal(size=(layers, growth, 9 * bw)) / np.sqrt(9 * bw)))
 
 
-def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev):
+def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev,
+                      dtype=torch.bfloat16):
     """K4's yardstick (the port never calls it): the block's 2L cuDNN
-    convolutions alone, bf16, channels_last; per layer the 1x1 from a
-    contiguous [b, cin, h, w] to bw and the dilated 3x3 from [b, bw, h, w]
+    convolutions alone in ``dtype``, channels_last; per layer the 1x1 from
+    a contiguous [b, cin, h, w] to bw and the dilated 3x3 from [b, bw, h, w]
     to G.  No BatchNorm, ReLU or concatenation.  Returns a function that
-    runs them all."""
+    runs them all (in f32, with whatever ``cudnn.allow_tf32`` is set when
+    it runs)."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def t(*shape):
         return (torch.randn(shape, generator=g, device=dev) * 0.1).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            dtype).contiguous(memory_format=torch.channels_last)
 
     xs = [t(b, c0 + l * growth, h, w) for l in range(layers)]
     k1s = [t(bw, c0 + l * growth, 1, 1) for l in range(layers)]
@@ -408,6 +436,218 @@ def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev):
             F.conv2d(x, k1)
             F.conv2d(hin, k2, padding=dil, dilation=dil)
     return run
+
+
+def dense_block_layer_errors(got, bargs, dil):
+    """K4's new channels layer by layer against the plain version fed the
+    kernel's own stack (each layer's input channels as the kernel wrote
+    them): (max |err| / max |ref|, mean |err| / mean |ref|) over all the new
+    channels.  Each layer's rounding is held apart from the steps that
+    earlier layers' roundings passed on."""
+    x0, mul1, add1, w1, mul2, add2, w2 = bargs
+    layers, growth, c0 = w1.shape[0], w2.shape[1], x0.shape[1]
+    err_max = ref_max = err_sum = ref_sum = 0.0
+    for l in range(layers):
+        cin = c0 + l * growth
+        cut = cin + growth
+        ref = kernels.dense_block_eval_plain(
+            got[:, :cin], mul1[l:l + 1, :cut], add1[l:l + 1, :cut],
+            w1[l:l + 1, :, :cut], mul2[l:l + 1], add2[l:l + 1],
+            w2[l:l + 1], dilation=dil)[:, cin:].float()
+        err = (got[:, cin:cut].float() - ref).abs()
+        err_max = max(err_max, err.max().item())
+        ref_max = max(ref_max, ref.abs().max().item())
+        err_sum += err.sum().item()
+        ref_sum += ref.abs().sum().item()
+    return err_max / ref_max, err_sum / ref_sum
+
+
+def k4_agrees(name, got, bargs, dil):
+    """K4's stack ``got`` against its plain version on ``bargs`` (run here;
+    TF32 must be off): the input channels exact, and the new channels
+    within K4_F32_* over the whole block in f32; in bf16 within K4_MAX_REL
+    and K4_MEAN_REL layer by layer, and over the whole block at the
+    flagship's blocks (K4_BLOCKS).  Returns (ok, figures, a line)."""
+    c0 = bargs[0].shape[1]
+    ref = kernels.dense_block_eval_plain(*bargs, dilation=dil)
+    max_rel, mean_rel, max_abs = rel_err(got[:, c0:], ref[:, c0:])
+    del ref
+    same_x0 = torch.equal(got[:, :c0], bargs[0])
+    layer_rel = None
+    if got.dtype == torch.float32:
+        tol = (K4_F32_MAX_REL, K4_F32_MEAN_REL)
+        ok = max_rel <= tol[0] and mean_rel <= tol[1]
+        held = "whole block held"
+    else:
+        tol = (K4_MAX_REL, K4_MEAN_REL)
+        layer_rel = dense_block_layer_errors(got, bargs, dil)
+        ok = layer_rel[0] <= tol[0] and layer_rel[1] <= tol[1]
+        if name in K4_BLOCKS:
+            ok = ok and max_rel <= tol[0] and mean_rel <= tol[1]
+            held = "whole block and each layer held"
+        else:
+            held = "each layer held, the whole block reported"
+    layers = ("" if layer_rel is None else
+              f"; layer by layer from the kernel's own inputs max/max "
+              f"{layer_rel[0]:.3e}, mean/mean {layer_rel[1]:.3e}")
+    text = (f"whole block max|err|/max|ref| {max_rel:.3e}, mean|err|/"
+            f"mean|ref| {mean_rel:.3e}, max|err| {max_abs:.3e}{layers} (tol "
+            f"{tol[0]:g} / {tol[1]:g}, {held}); input channels copied "
+            f"exactly: {same_x0}")
+    figures = dict(max_abs=max_abs, max_rel=max_rel, mean_rel=mean_rel,
+                   layer_rel=layer_rel)
+    return same_x0 and ok, figures, text
+
+
+def k4_phase(dev, flush, stamp):
+    """Phase 6: K4 against its plain version (TF32 off: products in full
+    f32 from the same operands as the kernel's) in each dtype at each of
+    DenseNet-121's four block shapes, timed beside its bound, its plain
+    version and cuDNN's 2L convolutions in the same dtype (f32 also with
+    TF32 on, as cuDNN runs f32 by default).  Returns {dtype: {block:
+    figures}}."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    k4 = {}
+    for dname, dtype in K4_DTYPES.items():
+        f32 = dtype == torch.float32
+        k4[dname] = {}
+        for i, (name, shape) in enumerate({**K4_BLOCKS,
+                                           **K4_MORE_BLOCKS}.items()):
+            *dims, dil = shape
+            bargs = dense_block_case(np.random.default_rng(10 + i), *dims,
+                                     dev, dtype)
+            got = kernels.dense_block_eval(*bargs, dilation=dil)
+            ok, figures, text = k4_agrees(name, got, bargs, dil)
+            print(f"K4 dense_block_eval {name} {list(dims[:4])} -> "
+                  f"{list(got.shape)} L={dims[4]} d={dil} {dname}: {text}",
+                  flush=True)
+            assert ok, f"K4 disagrees with its plain version at {name} {dname}"
+            del got
+            ms = time_ms(lambda: kernels.dense_block_eval(
+                *bargs, dilation=dil), 20, flush)
+            plain_ms = time_ms(lambda: kernels.dense_block_eval_plain(
+                *bargs, dilation=dil), 3, flush)
+            convs = dense_block_convs(*dims, dil, dev, dtype)
+            lib_ms = time_ms(convs, 20, flush)
+            flop, nbytes = kernels.dense_block_work(
+                *dims, elem_bytes=dtype.itemsize)
+            bound_ms, bound_by = bound(
+                flop, nbytes, PEAK_F32_PRODUCTS if f32 else PEAK_BF16)
+            gflop = flop / 1e9
+            extra = ""
+            lib_tf32_ms = None
+            if f32:
+                torch.backends.cudnn.allow_tf32 = True
+                lib_tf32_ms = time_ms(convs, 20, flush)
+                torch.backends.cudnn.allow_tf32 = False
+                extra = (f", with TF32 (not f32-accurate) "
+                         f"{lib_tf32_ms:.4f} ms")
+            del convs
+            print(f"K4 {name} {dname}: {gflop:.2f} GFLOP, {nbytes / 1e6:.1f} "
+                  f"MB; bound {bound_ms:.4f} ms ({bound_by}); kernel "
+                  f"{ms:.4f} ms ({gflop / ms:.1f} TFLOP/s, "
+                  f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} "
+                  f"ms ({gflop / plain_ms:.1f} TFLOP/s); cuDNN's "
+                  f"{2 * dims[4]} convs alone {lib_ms:.4f} ms "
+                  f"({gflop / lib_ms:.1f} TFLOP/s){extra} {stamp}",
+                  flush=True)
+            k4[dname][name] = dict(
+                ms=ms, plain_ms=plain_ms, **figures, lib_ms=lib_ms,
+                lib_tf32_ms=lib_tf32_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+            del bargs
+    torch.backends.cudnn.allow_tf32 = tf32
+    return k4
+
+
+def serve_rate(infer, args, want):
+    """img/s of ``infer`` over TIMED batches after WARMUP (host wall closed
+    by ``synchronize()``), with the launches of K1, K2 and K4 in the timed
+    batches held to ``want`` (a batch's) and the last batch's rows checked:
+    (img/s, launches, the last batch's valid rows)."""
+    names = ("fused_head_scores", "greedy_nms", "dense_block_eval")
+    for _ in range(WARMUP):
+        infer(*args)
+    torch.cuda.synchronize()
+    for n in names:
+        getattr(kernels, n).launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        dets, valid = infer(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: getattr(kernels, n).launches for n in names}
+    assert got == {n: TIMED * want[n] for n in names}, \
+        f"expected {want} launches a batch, got {got} in {TIMED} batches"
+    batch = args[0].shape[0]
+    dets, valid = dets.cpu(), valid.cpu()
+    assert dets.shape == (batch, 40, 17) and valid.shape == (batch, 40)
+    assert valid.any() and torch.isfinite(dets[valid]).all(), \
+        "no or non-finite detections"
+    return batch * TIMED / wall, got, int(valid.sum())
+
+
+def fast_eval_f32_phase(dev, stamp):
+    """Phase 7 (d) and (e): the f32 fast_eval engine, K4 in f32.  (d) on
+    the card against the CPU path at 2x64x128 with TF32 off, one RPN3D with
+    perturbed BatchNorm statistics; (e) the f32 flagship (compute_dtype
+    None, as the shipped configs compute) through make_infer at batch 8,
+    512x1760, fast_eval beside rpn3d at each cuDNN TF32 setting.  Returns
+    the launches of (e)'s fast_eval run with TF32 at its default (on)."""
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rpn = perturbed_rpn3d(seed=3)
+    engine_cpu = FastEvalRPN3D(rpn, torch.float32)
+    engine_gpu = copy.deepcopy(engine_cpu).to(
+        dev, memory_format=torch.channels_last)
+    x = torch.randn((2, 3, 64, 128), generator=torch.Generator().manual_seed(
+        4)).contiguous(memory_format=torch.channels_last)
+    kernels.dense_block_eval.launches = 0
+    with torch.inference_mode():
+        out_c = engine_cpu(x)
+        out_g = engine_gpu(x.to(dev))
+    torch.cuda.synchronize()
+    k4_launches = kernels.dense_block_eval.launches
+    max_rel, mean_rel, _ = rel_err(out_g.fused_raw.cpu(), out_c.fused_raw)
+    acc_err = (out_g.accept_prob.cpu() - out_c.accept_prob).abs().max().item()
+    print(f"fast_eval (d): f32 GPU vs CPU path at 2x64x128, TF32 off, "
+          f"fused_raw {list(out_c.fused_raw.shape)}: max|err|/max|ref| "
+          f"{max_rel:.3e} (tol {FE32_MAX_REL:g}), mean|err|/mean|ref| "
+          f"{mean_rel:.3e} (tol {FE32_MEAN_REL:g}); accept_prob max|err| "
+          f"{acc_err:.3e} (tol {FE32_ACCEPT_ATOL:g}); K4 launches "
+          f"{k4_launches}", flush=True)
+    assert k4_launches == 2 and out_g.fused_raw.dtype == torch.float32, \
+        "the f32 engine on the card did not run K4 on blocks 1-2"
+    assert max_rel <= FE32_MAX_REL and mean_rel <= FE32_MEAN_REL and \
+        acc_err <= FE32_ACCEPT_ATOL, "f32 fast_eval on the card disagrees"
+    del rpn, engine_cpu, engine_gpu, out_c, out_g
+
+    rates, launches = {}, None
+    for cudnn_tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        for engine in ("fast_eval", "rpn3d"):
+            infer, args, _ = build_flagship(device="cuda", engine=engine,
+                                            compute_dtype=None)
+            want = {"fused_head_scores": 1, "greedy_nms": 1,
+                    "dense_block_eval": 2 if engine == "fast_eval" else 0}
+            rate, got, _ = serve_rate(infer, args, want)
+            rates[engine] = rate
+            if engine == "fast_eval" and cudnn_tf32:
+                launches = got
+            del infer, args
+            torch.cuda.empty_cache()
+        print(f"fast_eval (e): f32 flagship, {TIMED} batches of 8 at "
+              f"512x1760, cudnn.allow_tf32={cudnn_tf32} (matmul TF32 off; "
+              f"K4 f32-accurate either way): fast_eval "
+              f"{rates['fast_eval']:.2f} img/s (K4 twice, K1 and K2 once a "
+              f"batch), rpn3d {rates['rpn3d']:.2f} img/s {stamp}",
+              flush=True)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = tf32
+    return launches
 
 
 def perturbed_rpn3d(seed):
@@ -3612,45 +3852,7 @@ def main():
           flush=True)
 
     # -- 6. K4 --------------------------------------------------------------
-    # the plain version's products in full f32 (no TF32), from the same
-    # bf16-rounded operands as the kernel's
-    torch.backends.cudnn.allow_tf32 = False
-    k4 = {}
-    for i, (name, shape) in enumerate(K4_BLOCKS.items()):
-        *dims, dil = shape
-        c0 = dims[1]
-        bargs = dense_block_case(np.random.default_rng(10 + i), *dims, dev)
-        got = kernels.dense_block_eval(*bargs, dilation=dil)
-        ref = kernels.dense_block_eval_plain(*bargs, dilation=dil)
-        max_rel, mean_rel, max_abs = rel_err(got[:, c0:], ref[:, c0:])
-        same_x0 = torch.equal(got[:, :c0], bargs[0])
-        print(f"K4 dense_block_eval {name} {list(dims[:4])} -> "
-              f"{list(got.shape)} L={dims[4]} bf16: max|err|/max|ref| "
-              f"{max_rel:.3e} (tol "
-              f"{K4_MAX_REL:g}), mean|err|/mean|ref| {mean_rel:.3e} (tol "
-              f"{K4_MEAN_REL:g}), max|err| {max_abs:.3e}, input channels "
-              f"copied exactly: {same_x0}", flush=True)
-        assert same_x0 and max_rel <= K4_MAX_REL and mean_rel <= K4_MEAN_REL, \
-            f"K4 disagrees with its plain version at {name}"
-        del got, ref
-        ms = time_ms(lambda: kernels.dense_block_eval(*bargs, dilation=dil),
-                     20, flush)
-        plain_ms = time_ms(lambda: kernels.dense_block_eval_plain(
-            *bargs, dilation=dil), 3, flush)
-        lib_ms = time_ms(dense_block_convs(*dims, dil, dev), 20, flush)
-        flop, nbytes = kernels.dense_block_work(*dims)
-        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16)
-        gflop = flop / 1e9
-        print(f"K4 {name}: {gflop:.2f} GFLOP, {nbytes / 1e6:.1f} MB; bound "
-              f"{bound_ms:.4f} ms ({bound_by}); kernel {ms:.4f} ms "
-              f"({gflop / ms:.1f} TFLOP/s, {bound_ms / ms:.1%} of the bound), "
-              f"plain {plain_ms:.4f} ms ({gflop / plain_ms:.1f} TFLOP/s); "
-              f"cuDNN's {2 * dims[4]} convs alone {lib_ms:.4f} ms "
-              f"({gflop / lib_ms:.1f} TFLOP/s) {stamp}", flush=True)
-        k4[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max_abs,
-                        max_rel=max_rel, mean_rel=mean_rel, lib_ms=lib_ms,
-                        bound_ms=bound_ms, bound_by=bound_by)
-    torch.backends.cudnn.allow_tf32 = True
+    k4 = k4_phase(dev, flush, stamp)
 
     # -- 7. fast_eval slice --------------------------------------------------
     # (a) the engine on the card against the engine on the CPU (its plain
@@ -3703,31 +3905,13 @@ def main():
 
     # (c) the flagship through make_infer with engine="fast_eval", timed
     infer_f, args_f, engine = build_flagship(device="cuda", engine="fast_eval")
-    for _ in range(WARMUP):
-        infer_f(*args_f)
-    torch.cuda.synchronize()
-    kernels.fused_head_scores.launches = 0
-    kernels.greedy_nms.launches = 0
-    kernels.dense_block_eval.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(TIMED):
-        dets, valid = infer_f(*args_f)
-    torch.cuda.synchronize()
-    wall_f = time.perf_counter() - t0
-    fe_launches = {"fused_head_scores": kernels.fused_head_scores.launches,
-                   "greedy_nms": kernels.greedy_nms.launches,
-                   "dense_block_eval": kernels.dense_block_eval.launches}
-    assert fe_launches == {"fused_head_scores": TIMED, "greedy_nms": TIMED,
-                           "dense_block_eval": 2 * TIMED}, \
-        f"expected K4 twice and K1, K2 once per batch, got {fe_launches}"
-    dets, valid = dets.cpu(), valid.cpu()
-    assert dets.shape == (batch, 40, 17) and valid.shape == (batch, 40)
-    assert valid.any() and torch.isfinite(dets[valid]).all(), \
-        "no or non-finite fast_eval detections"
-    print(f"fast_eval (c): {TIMED} batches of {batch} at 512x1760 bf16 in "
-          f"{wall_f * 1e3:.1f} ms: {batch * TIMED / wall_f:.2f} img/s, "
-          f"{wall_f * 1e3 / TIMED:.2f} ms/batch; launches {fe_launches}; "
-          f"{int(valid.sum())} valid rows {stamp}", flush=True)
+    rate_f, fe_launches, n_valid = serve_rate(
+        infer_f, args_f, {"fused_head_scores": 1, "greedy_nms": 1,
+                          "dense_block_eval": 2})
+    print(f"fast_eval (c): {TIMED} batches of {batch} at 512x1760 bf16: "
+          f"{rate_f:.2f} img/s, {batch * 1e3 / rate_f:.2f} ms/batch; "
+          f"launches {fe_launches}; {n_valid} valid rows {stamp}",
+          flush=True)
 
     with torch.inference_mode():
         bb = engine.backbone
@@ -3759,6 +3943,7 @@ def main():
     del model, engine, infer, infer_f, args_f, images, outs, bb, x1, x2, \
         k4_inputs, stages, fe_stages
     torch.cuda.empty_cache()
+    fe32_launches = fast_eval_f32_phase(dev, stamp)    # 7 (d), (e)
     k3 = k3_phase(dev, flush, stamp)
     group = group_phase(dev, flush, stamp)
     operator_phase(dev, flush, stamp)
@@ -3785,11 +3970,24 @@ def main():
     k1_bound = bound(b * r * 4 * HEAD_OPS, b * r * (per * 2 + 4 + 4),
                      PEAK_F32)
     k2_bound = k2_work_bound(*K2_SHAPE)
-    k4_ops = sum(kernels.dense_block_work(*s[:-1])[0]
-                 for s in K4_BLOCKS.values())
-    k4_bytes = sum(kernels.dense_block_work(*s[:-1])[1]
-                   for s in K4_BLOCKS.values())
-    k4_bound = bound(k4_ops, k4_bytes, PEAK_BF16)
+    def k4_figures(dname, launches):
+        # one batch's two blocks (1 and 2): ms, plain_ms, bound_ms and
+        # library_ms are block 1 + block 2; the bound from the two blocks'
+        # summed work
+        main = [k4[dname][n] for n in K4_BLOCKS]
+        nbytes = 2 if dname == "bf16" else 4
+        work = [kernels.dense_block_work(*s[:-1], elem_bytes=nbytes)
+                for s in K4_BLOCKS.values()]
+        ms_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work),
+                         PEAK_BF16 if dname == "bf16" else PEAK_F32_PRODUCTS)
+        return {"launches": launches,
+                "max_abs_err": max(v["max_abs"] for v in main),
+                "max_rel_err": max(v["max_rel"] for v in main),
+                "mean_rel_err": max(v["mean_rel"] for v in main),
+                "ms": sum(v["ms"] for v in main),
+                "plain_ms": sum(v["plain_ms"] for v in main),
+                "bound_ms": ms_bound[0], "bound_by": ms_bound[1],
+                "library_ms": sum(v["lib_ms"] for v in main)}
     entries = [
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
@@ -3823,19 +4021,15 @@ def main():
              r["greedy_nms"] for r in parallel["eval_rank_launches"]],
              "dryrun_eval_launches_a_rank":
              parallel["dryrun_eval_launches"]["greedy_nms"]}},
-        # one batch's two blocks: ms, plain_ms, bound_ms and library_ms are
-        # block 1 + block 2
+        # bf16 (the flagship's fast_eval) at the top level, f32 (the f32
+        # fast_eval of phase 7 e) under "f32", each block of both dtypes
+        # under "blocks"
         {"name": "dense_block_eval", "route": "cuda",
          "source": "groomed_nms_torch/csrc/dense_block.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_dense_block.py:140",
-         "launches": fe_launches["dense_block_eval"],
-         "max_abs_err": max(v["max_abs"] for v in k4.values()),
-         "max_rel_err": max(v["max_rel"] for v in k4.values()),
-         "mean_rel_err": max(v["mean_rel"] for v in k4.values()),
-         "ms": sum(v["ms"] for v in k4.values()),
-         "plain_ms": sum(v["plain_ms"] for v in k4.values()),
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-         "library_ms": sum(v["lib_ms"] for v in k4.values()),
+         **k4_figures("bf16", fe_launches["dense_block_eval"]),
+         "f32": k4_figures("f32", fe32_launches["dense_block_eval"]),
+         "blocks": k4,
          "parallel": parallel["dense_block_eval"]},
         # launches: the full-size train loop's; ms at its shape [8, 512, 4]
         {"name": "fused_iou_prune", "route": "cuda",

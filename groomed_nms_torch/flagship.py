@@ -72,7 +72,7 @@ def build_flagship(batch=8, height=512, width=1760, device="cuda",
     "rpn3d" serves the ``RPN3D`` module under autocast; "fast_eval" serves
     the weight-folded ``FastEvalRPN3D`` built from it once, in
     ``compute_dtype`` (f32 when None), with K4 running dense blocks 1-2;
-    on a CUDA device it takes bf16 only (K4's dtype) and raises
+    on a CUDA device it takes bf16 or f32 (K4's dtypes) and raises
     ``ValueError`` at once for any other.
     ``differentiable_nms`` sets the config's
     ``use_differentiable_nms_at_test``: GrooMeD-NMS (K3) replaces greedy

@@ -16,7 +16,7 @@ port ``RPN3D`` (``FastEvalRPN3D(model, dtype)``), it holds:
 ``RPN3D.forward`` in eval mode up to rounding.  It rounds where JAX does:
 each folded BatchNorm is ``x * mul + add`` in the compute dtype, product
 then sum rounded, and the transitions' 2x2 pool sums its window in XLA's
-order.  On a CUDA device K4 takes bf16 only, so an engine there with
+order.  On a CUDA device K4 takes bf16 and f32, so an engine there with
 kernel blocks refuses any other dtype (``check_kernel_dtype``).  Its output
 is the port's ``RPNOutputs``, so ``eval/tester.py::make_infer`` serves it
 unchanged.  The stem is the plain 7x7/s2 conv: JAX's TPU-only
@@ -34,7 +34,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ..ops.kernels import dense_block_eval
+from ..ops.kernels import DENSE_BLOCK_DTYPES, dense_block_eval
 from .densenet import DenseLayer, DenseNetBackbone
 from .rpn_3d import RPN3D
 
@@ -75,14 +75,15 @@ KERNEL_BLOCKS = (0, 1)         # the dense blocks K4 runs by default
 
 def check_kernel_dtype(device, dtype, kernel_blocks):
     """Refuse an engine its kernel cannot serve: on a CUDA device K4 takes
-    bf16 only, so an engine there with any ``kernel_blocks`` must compute
-    in bf16.  (No other path stands in for K4: an f32 engine on the card
-    would raise at its first batch.)"""
+    bf16 and f32 only, so an engine there with any ``kernel_blocks`` must
+    compute in one of them.  (No other path stands in for K4: an f16 or
+    f64 engine on the card would raise at its first batch.)"""
     if torch.device(device).type == "cuda" and kernel_blocks and \
-            dtype != torch.bfloat16:
+            dtype not in DENSE_BLOCK_DTYPES:
         raise ValueError(
             f"fast_eval on {device} runs dense blocks {tuple(kernel_blocks)} "
-            f"with K4, which takes bf16 only; got compute dtype {dtype}")
+            f"with K4, which takes bf16 or f32 only; got compute dtype "
+            f"{dtype}")
 
 
 def _frozen(weight, dtype):

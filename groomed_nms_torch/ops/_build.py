@@ -125,11 +125,13 @@ def group_leaders_lib():
 
 @functools.cache
 def dense_block_lib():
-    """The dense-block (K4) library with its C entry's signature declared."""
+    """The dense-block (K4) library with its C entries' signatures declared:
+    ``dense_block_eval`` (bf16) and ``dense_block_eval_f32``."""
     lib = ctypes.CDLL(str(build("dense_block.cu")))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dense_block_eval.argtypes = [p] * 8 + [i] * 9 + [p]
-    lib.dense_block_eval.restype = ctypes.c_int
+    for fn in (lib.dense_block_eval, lib.dense_block_eval_f32):
+        fn.argtypes = [p] * 8 + [i] * 9 + [p]
+        fn.restype = ctypes.c_int
     return lib
 
 

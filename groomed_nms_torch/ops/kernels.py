@@ -555,7 +555,8 @@ group_leaders.launches = 0
 # K4: eval-mode dense block (CUDA C++)
 # ---------------------------------------------------------------------------
 
-_BLOCK_DTYPES = (torch.bfloat16, torch.float32)
+# the dtypes K4 takes, on the card and on the CPU
+DENSE_BLOCK_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
@@ -587,25 +588,26 @@ def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
     return stack.contiguous(memory_format=torch.channels_last)
 
 
-def dense_block_work(b, c0, h, w, layers, growth, bw):
-    """The least work of one bf16 dense block on the kernel: (FLOP, bytes).
+def dense_block_work(b, c0, h, w, layers, growth, bw, elem_bytes=2):
+    """The least work of one dense block on the kernel: (FLOP, bytes).
 
     FLOP: 2 * pixels * bw * (sum over layers of cin + 9 * G), the 1x1 and
     3x3 products.  Bytes: the input x0 read once and the whole stack
-    [B, c0 + L*G, H, W] written once, 2 bytes an element (the weights,
-    under 2% of it on DenseNet-121's blocks, are left out)."""
+    [B, c0 + L*G, H, W] written once, ``elem_bytes`` an element (2 in bf16,
+    4 in f32; the weights, under 2% of it on DenseNet-121's blocks, are
+    left out)."""
     pixels = b * h * w
     k1 = sum(c0 + l * growth for l in range(layers))
     flop = 2 * pixels * bw * (k1 + 9 * growth * layers)
-    nbytes = pixels * (c0 + c0 + layers * growth) * 2
+    nbytes = pixels * (c0 + c0 + layers * growth) * elem_bytes
     return flop, nbytes
 
 
 def _check_dense_block(x0, mul1, add1, w1, mul2, add2, w2, dilation):
     """K4's argument checks; returns (layers, c0, cmax, bw, growth)."""
-    if x0.dim() != 4 or x0.dtype not in _BLOCK_DTYPES:
-        raise ValueError(f"x0 must be [B, c0, H, W] of {_BLOCK_DTYPES}, got "
-                         f"{tuple(x0.shape)} {x0.dtype}")
+    if x0.dim() != 4 or x0.dtype not in DENSE_BLOCK_DTYPES:
+        raise ValueError(f"x0 must be [B, c0, H, W] of {DENSE_BLOCK_DTYPES}, "
+                         f"got {tuple(x0.shape)} {x0.dtype}")
     if w1.dim() != 3 or w2.dim() != 3:
         raise ValueError(f"w1 must be [L, bw, cmax] and w2 [L, G, 9*bw], got "
                          f"{tuple(w1.shape)} and {tuple(w2.shape)}")
@@ -647,8 +649,10 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
 
     On a CUDA tensor one call is 2L kernel launches (after a copy of ``x0``
     into the stack) and counts once in ``dense_block_eval.launches``.  The
-    kernel takes bf16 only, c0 and G multiples of 8, G <= 64 and bw a
-    multiple of 32 up to 128; anything else raises ``ValueError``.
+    kernel takes bf16 (``csrc/dense_block.cu::dense_block_eval``) and f32
+    (``dense_block_eval_f32``: products at f32 accuracy, 3xTF32), c0 and G
+    multiples of 8, G <= 64 and bw a multiple of 32 up to 128; anything
+    else raises ``ValueError``.
     """
     layers, c0, cmax, bw, growth = _check_dense_block(
         x0, mul1, add1, w1, mul2, add2, w2, dilation)
@@ -656,8 +660,9 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
         return dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2,
                                       dilation=dilation)
 
-    if x0.dtype != torch.bfloat16:
-        raise ValueError(f"the dense-block kernel takes bf16, got {x0.dtype}")
+    # _check_dense_block took DENSE_BLOCK_DTYPES only
+    entry = "dense_block_eval" if x0.dtype == torch.bfloat16 else \
+        "dense_block_eval_f32"
     if c0 % 8 or growth % 8 or growth > 64 or bw % 32 or bw > 128:
         raise ValueError(f"the dense-block kernel takes c0 and G multiples of "
                          f"8, G <= 64, bw in (32, 64, 96, 128); got c0={c0}, "
@@ -669,7 +674,7 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
                             memory_format=torch.channels_last)
         stack[:, :c0].copy_(x0)
         hbuf = torch.empty((b * h * w, bw), dtype=x0.dtype, device=x0.device)
-        err = lib.dense_block_eval(
+        err = getattr(lib, entry)(
             stack.data_ptr(), hbuf.data_ptr(), mul1.data_ptr(),
             add1.data_ptr(), w1.data_ptr(), mul2.data_ptr(), add2.data_ptr(),
             w2.data_ptr(), b, h, w, c0, cmax, layers, bw, growth, dilation,

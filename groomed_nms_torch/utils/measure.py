@@ -14,8 +14,14 @@ import subprocess
 import torch
 
 # the H100 SXM's published peaks (dense, 700 W): bf16 tensor-core FLOP/s,
-# f32 FLOP/s outside the tensor cores, device-memory bytes/s
+# f32 FLOP/s outside the tensor cores, device-memory bytes/s, TF32
+# tensor-core FLOP/s
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 494.7e12
+# the fastest route to products at f32 accuracy: three TF32 products for
+# one on the tensor cores (3xTF32, PEAK_TF32 / 3), or f32 FMA, whichever is
+# faster (the former: 164.9 TFLOP/s)
+PEAK_F32_PRODUCTS = max(PEAK_TF32 / 3, PEAK_F32)
 
 # the port's kernels by wrapper name, and the device kernel of each that
 # runs once a wrapper launch (substrings of the profiler's kernel names):

@@ -3,12 +3,15 @@
 one CUDA card, with each call split into its 1x1 and 3x3 kernels.
 
     python3 scripts/k4_compare.py [--other DIR ...] [--reps 20]
+        [--dtype bf16|f32]
 
 Builds ``groomed_nms_torch/csrc/dense_block.cu`` of this checkout and, with
 ``--other``, the same file of other checkouts (the parent commit unpacked by
 ``git archive``, say), with the same nvcc flags.  At each of the flagship's
-two kernel blocks (``chip_smoke.K4_BLOCKS``) it checks each library against
-``dense_block_eval_plain`` with chip_smoke.py's tolerances, times them in
+two kernel blocks (``chip_smoke.K4_BLOCKS``), in ``--dtype`` (checkouts
+that predate K4's f32 entry take bf16 only), it checks each library against
+``dense_block_eval_plain`` with chip_smoke.py's rule
+(``chip_smoke.k4_agrees``), times them in
 the order others, this, this, others reversed (median device ms of
 ``--reps`` calls, L2 flushed before each), and sums the device time of a
 call's kernels by name (``chip_smoke.split_ms``).  Prints one line per
@@ -31,26 +34,32 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (K4_BLOCKS, K4_MAX_REL, K4_MEAN_REL, PEAK_BF16,  # noqa: E402
-                        bound, card_line, dense_block_case, rel_err,
-                        split_ms, time_ms)
+from chip_smoke import (K4_BLOCKS, K4_DTYPES, PEAK_BF16,  # noqa: E402
+                        PEAK_F32_PRODUCTS, bound, card_line,
+                        dense_block_case, k4_agrees, split_ms, time_ms)
 from groomed_nms_torch.ops import _build, kernels  # noqa: E402
 
 SOURCE = Path("groomed_nms_torch/csrc/dense_block.cu")
 KERNEL_NAMES = ("conv1x1_bn_relu", "conv3x3")
 
 
-def load(path):
-    """The library at ``path`` with its C entry declared."""
+ENTRIES = {torch.bfloat16: "dense_block_eval",
+           torch.float32: "dense_block_eval_f32"}
+
+
+def load(path, dtype):
+    """The library at ``path`` with its C entry for ``dtype`` declared."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dense_block_eval.argtypes = [p] * 8 + [i] * 9 + [p]
-    lib.dense_block_eval.restype = ctypes.c_int
+    fn = getattr(lib, ENTRIES[dtype])
+    fn.argtypes = [p] * 8 + [i] * 9 + [p]
+    fn.restype = ctypes.c_int
     return lib
 
 
 def run(lib, x0, mul1, add1, w1, mul2, add2, w2, dilation):
-    """``kernels.dense_block_eval``'s CUDA path on the library ``lib``."""
+    """``kernels.dense_block_eval``'s CUDA path on the library ``lib``, in
+    ``x0``'s dtype."""
     layers, bw, cmax = w1.shape
     growth = w2.shape[1]
     b, c0, h, w = x0.shape
@@ -58,7 +67,7 @@ def run(lib, x0, mul1, add1, w1, mul2, add2, w2, dilation):
                         memory_format=torch.channels_last)
     stack[:, :c0].copy_(x0)
     hbuf = torch.empty((b * h * w, bw), dtype=x0.dtype, device=x0.device)
-    err = lib.dense_block_eval(
+    err = getattr(lib, ENTRIES[x0.dtype])(
         stack.data_ptr(), hbuf.data_ptr(), mul1.data_ptr(), add1.data_ptr(),
         w1.data_ptr(), mul2.data_ptr(), add2.data_ptr(), w2.data_ptr(), b, h,
         w, c0, cmax, layers, bw, growth, dilation,
@@ -73,7 +82,9 @@ def main():
     ap.add_argument("--other", type=Path, nargs="*", default=[],
                     help="other checkouts whose K4 is timed beside this one's")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--dtype", choices=tuple(K4_DTYPES), default="bf16")
     opts = ap.parse_args()
+    dtype = K4_DTYPES[opts.dtype]
     if not torch.cuda.is_available():
         raise RuntimeError("k4_compare.py needs a CUDA device")
     dev = torch.device("cuda")
@@ -83,29 +94,29 @@ def main():
     sources = [ROOT / SOURCE] + [d.resolve() / SOURCE for d in opts.other]
     with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc each
         paths = list(pool.map(lambda src: _build.build(str(src)), sources))
-    libs = {name: load(path) for name, path in zip(["this"] + others, paths)}
+    libs = {name: load(path, dtype)
+            for name, path in zip(["this"] + others, paths)}
     order = others + ["this", "this"] + others[::-1]
     wrong = set()
     torch.backends.cudnn.allow_tf32 = False       # the plain version in f32
     results = {}
     for i, (block, shape) in enumerate(K4_BLOCKS.items()):
         *dims, dil = shape
-        c0 = dims[1]
-        args = dense_block_case(np.random.default_rng(10 + i), *dims, dev)
-        ref = kernels.dense_block_eval_plain(*args, dilation=dil)
-        flop, nbytes = kernels.dense_block_work(*dims)
-        bound_ms, bound_by = bound(flop, nbytes, PEAK_BF16)
+        args = dense_block_case(np.random.default_rng(10 + i), *dims, dev,
+                                dtype)
+        flop, nbytes = kernels.dense_block_work(
+            *dims, elem_bytes=dtype.itemsize)
+        bound_ms, bound_by = bound(
+            flop, nbytes,
+            PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32_PRODUCTS)
         for name, lib in libs.items():
             got = run(lib, *args, dil)
-            max_rel, mean_rel, _ = rel_err(got[:, c0:], ref[:, c0:])
-            ok = torch.equal(got[:, :c0], args[0]) and \
-                max_rel <= K4_MAX_REL and mean_rel <= K4_MEAN_REL
-            print(f"{block} {name}: max|err|/max|ref| {max_rel:.3e}, "
-                  f"mean|err|/mean|ref| {mean_rel:.3e}: "
+            ok, _, text = k4_agrees(block, got, args, dil)
+            print(f"{block} {opts.dtype} {name}: {text}: "
                   f"{'agrees' if ok else 'DISAGREES'}", flush=True)
             if not ok:
                 wrong.add(name)
-        del got, ref
+            del got
         times = {name: [] for name in libs}
         for name in order:
             lib = libs[name]
@@ -115,11 +126,11 @@ def main():
             split = split_ms(lambda: run(lib, *args, dil), KERNEL_NAMES,
                              dict.fromkeys(KERNEL_NAMES, dims[4]))
             ms = float(np.median(times[name]))
-            results[f"{block} {name}"] = dict(ms=times[name], split=split,
-                                              bound_ms=bound_ms,
-                                              agrees=name not in wrong)
+            results[f"{block} {opts.dtype} {name}"] = dict(
+                ms=times[name], split=split, bound_ms=bound_ms,
+                agrees=name not in wrong)
             mark = " (DISAGREES)" if name in wrong else ""
-            print(f"{block} {name}{mark}: "
+            print(f"{block} {opts.dtype} {name}{mark}: "
                   f"{' / '.join(f'{t:.4f}' for t in times[name])}"
                   f" ms ({flop / 1e9 / ms:.1f} TFLOP/s, {bound_ms / ms:.1%} "
                   f"of the {bound_ms:.4f} ms bound by {bound_by}); a call by "

@@ -175,15 +175,16 @@ def test_slice_on_cuda_matches_cpu(cuda):
                                atol=1e-3)
 
 
-def _dense_block_case(seed, b, c0, h, w, layers, growth, bw, device):
-    """Seeded block input and packed weights in bf16: folded affines with
-    mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal kernels."""
+def _dense_block_case(seed, b, c0, h, w, layers, growth, bw, device,
+                      dtype=torch.bfloat16):
+    """Seeded block input and packed weights in ``dtype``: folded affines
+    with mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal kernels."""
     rs = np.random.default_rng(seed)
     cmax = c0 + layers * growth
 
     def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(
-            torch.bfloat16).to(device)
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dtype).to(
+            device)
 
     x0 = t(rs.normal(size=(b, c0, h, w))).contiguous(
         memory_format=torch.channels_last)
@@ -210,12 +211,17 @@ def _dense_block_case(seed, b, c0, h, w, layers, growth, bw, device):
     (2, 64, 24, 40, 2, 64, 64, 1),       # bw 64 with G 64
     (8, 64, 128, 440, 6, 32, 128, 1),    # the flagship's block 1
 ])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dense_block_kernel_matches_plain(cuda, b, c0, h, w, layers, growth,
-                                          bw, dil):
-    """Max |err| within 1e-2 of max |ref| and mean |err| within 1e-3 of
-    mean |ref| over the new channels: the two sum in other orders, so a
-    bf16 rounding of h or of an output may land one step apart."""
-    args = _dense_block_case(h * w, b, c0, h, w, layers, growth, bw, cuda)
+                                          bw, dil, dtype):
+    """Over the new channels, against the plain version with TF32 off.
+    bf16: max |err| within 1e-2 of max |ref| and mean |err| within 1e-3 of
+    mean |ref|: the two sum in other orders, so a bf16 rounding of h or of
+    an output may land one step apart.  f32: both within 1e-5, products at
+    f32 accuracy (3xTF32) summed in other orders (one TF32 product a
+    multiply would be ~5e-4 off)."""
+    args = _dense_block_case(h * w, b, c0, h, w, layers, growth, bw, cuda,
+                             dtype)
     before = kernels.dense_block_eval.launches
     got = kernels.dense_block_eval(*args, dilation=dil)
     assert kernels.dense_block_eval.launches == before + 1
@@ -227,19 +233,21 @@ def test_dense_block_kernel_matches_plain(cuda, b, c0, h, w, layers, growth,
         torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.synchronize()
     cmax = c0 + layers * growth
-    assert got.shape == (b, cmax, h, w) and got.dtype == torch.bfloat16
+    assert got.shape == (b, cmax, h, w) and got.dtype == dtype
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got[:, :c0], args[0])
     new, ref = got[:, c0:].float(), ref[:, c0:].float()
     err = (new - ref).abs()
-    assert err.max() <= 1e-2 * ref.abs().max()
-    assert err.mean() <= 1e-3 * ref.abs().mean()
+    max_rel, mean_rel = (1e-2, 1e-3) if dtype == torch.bfloat16 else \
+        (1e-5, 1e-5)
+    assert err.max() <= max_rel * ref.abs().max()
+    assert err.mean() <= mean_rel * ref.abs().mean()
 
 
 def test_dense_block_kernel_refuses_what_it_does_not_take(cuda):
     args = _dense_block_case(0, 1, 16, 8, 8, 2, 8, 32, cuda)
-    with pytest.raises(ValueError):           # f32 is never handed on
-        kernels.dense_block_eval(*(a.float() for a in args))
+    with pytest.raises(ValueError):           # f16 is never handed on
+        kernels.dense_block_eval(*(a.half() for a in args))
     args = _dense_block_case(0, 1, 16, 8, 8, 2, 8, 48, cuda)
     with pytest.raises(ValueError):           # bw not a multiple of 32
         kernels.dense_block_eval(*args)
@@ -248,11 +256,9 @@ def test_dense_block_kernel_refuses_what_it_does_not_take(cuda):
         kernels.dense_block_eval(*args)
 
 
-def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
-    """The tiny engine in bf16 at 2x64x128: K4 and cuDNN on the card vs the
-    plain path on the CPU, BatchNorm statistics perturbed from a seed.
-    bf16 sums in other orders: max |err| within 5% of max |ref|, mean
-    |err| within 2% of mean |ref|, acceptance within 0.02."""
+def _perturbed_tiny_rpn3d():
+    """The tiny RPN3D (acceptance branch) from a seed, every BatchNorm's
+    affine and running statistics drawn from a seeded generator."""
     cfg = RPNConfig(num_anchors=6, prop_features=64,
                     predict_acceptance_prob=True,
                     backbone=tiny_densenet_config())
@@ -267,7 +273,16 @@ def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
                     torch.randn(m.running_mean.shape, generator=g) * 0.2)
                 m.running_var.copy_(
                     torch.rand(m.running_var.shape, generator=g) + 0.5)
-    engine = FastEvalRPN3D(model.eval(), torch.bfloat16)
+    return model.eval(), g
+
+
+def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
+    """The tiny engine in bf16 at 2x64x128: K4 and cuDNN on the card vs the
+    plain path on the CPU, BatchNorm statistics perturbed from a seed.
+    bf16 sums in other orders: max |err| within 5% of max |ref|, mean
+    |err| within 2% of mean |ref|, acceptance within 0.02."""
+    model, g = _perturbed_tiny_rpn3d()
+    engine = FastEvalRPN3D(model, torch.bfloat16)
     x = torch.randn((2, 3, 64, 128), generator=g).to(torch.bfloat16)
     x = x.contiguous(memory_format=torch.channels_last)
     with torch.inference_mode():
@@ -286,21 +301,41 @@ def test_fast_eval_engine_on_cuda_matches_cpu(cuda):
                                rtol=0, atol=0.02)
 
 
-def test_f32_fast_eval_on_cuda_is_refused_at_build(cuda):
-    """K4 takes bf16 only: an f32 fast_eval engine on the card raises when
-    it is built, not at its first batch; without kernel blocks it builds."""
-    with pytest.raises(ValueError, match="bf16 only"):
-        build_flagship(device=cuda, engine="fast_eval", compute_dtype=None)
-    cfg = RPNConfig(num_anchors=6, prop_features=64,
-                    backbone=tiny_densenet_config())
-    model = init_weights(RPN3D(cfg), torch.Generator().manual_seed(0))
-    model = model.to(cuda).eval()
-    with pytest.raises(ValueError, match="bf16 only"):
-        FastEvalRPN3D(model, torch.float32)
-    engine = FastEvalRPN3D(model, torch.float32, kernel_blocks=())
-    with torch.no_grad():
-        out = engine(torch.randn((1, 3, 64, 128), device=cuda))
-    assert out.fused_raw.dtype == torch.float32
+@pytest.mark.parametrize("kernel_blocks", [(0, 1), (0, 1, 2, 3)])
+def test_f32_fast_eval_engine_on_cuda_matches_cpu(cuda, kernel_blocks):
+    """The tiny engine in f32 at 2x64x128, K4 on blocks 1-2 or on all four,
+    on the card (TF32 off) against the plain path on the CPU: f32 sums in
+    other orders, fused_raw within 1e-4 of max |ref| (mean within 1e-5 of
+    mean |ref|), acceptance within 1e-5."""
+    model, g = _perturbed_tiny_rpn3d()
+    engine = FastEvalRPN3D(model, torch.float32, kernel_blocks)
+    x = torch.randn((2, 3, 64, 128), generator=g)
+    x = x.contiguous(memory_format=torch.channels_last)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = engine(x)
+            before = kernels.dense_block_eval.launches
+            gpu = copy.deepcopy(engine).to(
+                cuda, memory_format=torch.channels_last)
+            got = gpu(x.to(cuda))
+            torch.cuda.synchronize()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert kernels.dense_block_eval.launches == before + len(kernel_blocks)
+    assert got.fused_raw.dtype == torch.float32
+    f_got, f_ref = got.fused_raw.cpu(), ref.fused_raw
+    err = (f_got - f_ref).abs()
+    assert err.max() <= 1e-4 * f_ref.abs().max()
+    assert err.mean() <= 1e-5 * f_ref.abs().mean()
+    torch.testing.assert_close(got.accept_prob.cpu(), ref.accept_prob,
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="bf16 or f32 only"):
+        FastEvalRPN3D(model.to(cuda), torch.float16)
 
 
 @pytest.mark.parametrize("method", ["linear", "sigmoidal", "soft_nms"])

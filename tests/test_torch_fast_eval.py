@@ -129,21 +129,30 @@ def test_dense_block_plain_matches_pallas_bf16(block, h, w):
     assert (got == ref).mean() >= 0.999
 
 
-def test_backbone_eval_matches_jax_f32():
+# the dense blocks that K4 runs: the default pair, and all four (as JAX's
+# backbone_eval(pallas_blocks=...) allows)
+_KERNEL_BLOCK_SETS = [(0, 1), (0, 1, 2, 3)]
+
+
+@pytest.mark.parametrize("kernel_blocks", _KERNEL_BLOCK_SETS)
+def test_backbone_eval_matches_jax_f32(kernel_blocks):
     jmodel, variables, tmodel = _models()
     x = np.random.default_rng(3).normal(size=(2, 64, 96, 3)).astype(
         np.float32)
     ref = np.asarray(backbone_eval(variables["params"]["backbone"],
                                    variables["batch_stats"]["backbone"],
                                    jmodel.config.backbone, jnp.asarray(x),
-                                   interpret=True))
+                                   interpret=True,
+                                   pallas_blocks=kernel_blocks))
     with torch.no_grad():
-        got = FastEvalBackbone(tmodel.backbone, torch.float32)(_nchw(x))
+        got = FastEvalBackbone(tmodel.backbone, torch.float32,
+                               kernel_blocks)(_nchw(x))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
                                atol=2e-4, rtol=2e-4)
 
 
-def test_backbone_eval_matches_jax_bf16():
+@pytest.mark.parametrize("kernel_blocks", _KERNEL_BLOCK_SETS)
+def test_backbone_eval_matches_jax_bf16(kernel_blocks):
     """The bf16 trunk rounds where JAX rounds (folded norms, the 1x1 sums,
     the pool's window order): measured bit-identical; held to mean/mean
     1e-5 and 99.9% bit-equal, the slack of one bf16 step where a
@@ -154,9 +163,11 @@ def test_backbone_eval_matches_jax_bf16():
     ref = np.asarray(backbone_eval(variables["params"]["backbone"],
                                    variables["batch_stats"]["backbone"],
                                    jmodel.config.backbone, jnp.asarray(x),
-                                   interpret=True), np.float32)
+                                   interpret=True,
+                                   pallas_blocks=kernel_blocks), np.float32)
     with torch.no_grad():
-        got = FastEvalBackbone(tmodel.backbone, torch.bfloat16)(_nchw(x))
+        got = FastEvalBackbone(tmodel.backbone, torch.bfloat16,
+                               kernel_blocks)(_nchw(x))
     assert got.dtype == torch.bfloat16
     got = to_np(got.permute(0, 2, 3, 1))
     assert np.abs(got - ref).mean() / np.abs(ref).mean() <= 1e-5
@@ -202,26 +213,32 @@ def test_transition_pool_matches_flax(h, w, dtype):
 
 
 @pytest.mark.parametrize("device,dtype,blocks,refused", [
-    ("cuda", torch.float32, (0, 1), True),
+    ("cuda", torch.float32, (0, 1), False),
     ("cuda:1", torch.float16, (2,), True),
+    ("cuda", torch.float16, (0, 1), True),
+    ("cuda", torch.float64, (0, 1), True),
     ("cuda", torch.bfloat16, (0, 1), False),
+    ("cuda", torch.float32, (0, 1, 2, 3), False),
     ("cuda", torch.float32, (), False),
     ("cpu", torch.float32, (0, 1), False),
 ])
 def test_kernel_dtype_refusal(device, dtype, blocks, refused):
-    """K4 takes bf16 only on a CUDA device: an engine built there with
+    """K4 takes bf16 and f32 on a CUDA device: an engine built there with
     kernel blocks in another dtype is refused at build time."""
     if refused:
-        with pytest.raises(ValueError, match="bf16 only"):
+        with pytest.raises(ValueError, match="bf16 or f32 only"):
             check_kernel_dtype(device, dtype, blocks)
     else:
         check_kernel_dtype(device, dtype, blocks)
 
 
 def test_flagship_refuses_f32_fast_eval_on_cuda():
-    """Refused before any weight is made or moved: no card is needed."""
-    with pytest.raises(ValueError, match="bf16 only"):
-        build_flagship(device="cuda", engine="fast_eval", compute_dtype=None)
+    """The flagship's f32 engine runs on the card now; a dtype that K4 does
+    not take (f16) is refused before any weight is made or moved, so no
+    card is needed."""
+    with pytest.raises(ValueError, match="bf16 or f32 only"):
+        build_flagship(device="cuda", engine="fast_eval",
+                       compute_dtype=torch.float16)
 
 
 def _detect_args(rs, a, b, feat_hw):
@@ -348,6 +365,22 @@ def test_dense_block_wrapper_refuses_bad_input(make, kw):
 def test_dense_block_work_of_the_flagship(dims, gflop, mbytes):
     flop, nbytes = kernels.dense_block_work(*dims)
     assert f"{flop / 1e9:.2f}" == gflop and f"{nbytes / 1e6:.1f}" == mbytes
+
+
+@pytest.mark.parametrize("dims", [
+    (8, 64, 128, 440, 6, 32, 128), (8, 128, 64, 220, 12, 32, 128),
+    (8, 256, 32, 110, 24, 32, 128), (8, 512, 32, 110, 16, 32, 128),
+])
+def test_dense_block_work_counts_four_bytes_in_f32(dims):
+    """The same FLOP in f32, and 4 bytes an element: twice bf16's bytes
+    (block 1: 576.7 MB)."""
+    flop2, bytes2 = kernels.dense_block_work(*dims)
+    flop4, bytes4 = kernels.dense_block_work(*dims, elem_bytes=4)
+    assert flop4 == flop2 and bytes4 == 2 * bytes2
+    b, c0, h, w, layers, growth, _ = dims
+    assert bytes4 == b * h * w * (2 * c0 + layers * growth) * 4
+    if dims[1] == 64:
+        assert f"{bytes4 / 1e6:.1f}" == "576.7"
 
 
 def test_dense_block_work_counts_each_conv():
