@@ -60,14 +60,19 @@ Phases, in order; any failure raises and exits non-zero:
                 kernel and plain times at the two shapes, Gpairs/s, the
                 bound (kernels.iou_prune_work) and the share of it;
   9. operator -- the grouping kernel (kernels.group_leaders) against its
-                plain version on GROUP_CASES (IoUs with padding holes;
+                plain version at group_cases() (IoUs with padding holes;
                 asymmetric overlaps with ties at the threshold and NaNs;
-                group sizes -1, 0, 1, 100), timed on the operator's own
-                input at [8, 512] beside its bound; then GrooMeD-NMS (sort,
+                group sizes -1, 0, 1, 100; N on both sides of the cluster
+                path's limit, each case on the path group_leaders_plan
+                names, by the per-path launch counts), timed on the
+                operator's own input at [8, 512] and [1, 1000] (one
+                cluster launch a call) beside its bound, its split by
+                kernel and its plain version; then GrooMeD-NMS (sort,
                 K3, grouping, rescoring) on the card against the CPU path
                 at [8, 512] and [1, 1000]: one K3 and one grouping launch a
-                call, no host synchronisation (torch.cuda sync debug mode
-                "error"), host ms, Mboxes/s and the split by stage;
+                call, on the cluster path, no host synchronisation
+                (torch.cuda sync debug mode "error"), host ms, Mboxes/s
+                and the split by stage;
  10. groomed test -- the flagship through make_infer with GrooMeD-NMS at
                 test time: K3, the grouping and K1 once per batch, K2
                 never; timed;
@@ -344,10 +349,12 @@ K3_SHAPES = {"train": (8, 512), "analysis": (1, 1000)}
 # K3's edge sizes (B, N): one box, ragged tiles, N % 4 != 0 (scalar
 # stores), many tiles
 K3_EDGE = ((1, 1), (2, 31), (3, 33), (2, 64), (3, 65), (2, 100), (1, 2048))
-# the grouping kernel: identical to its plain version at each (B, N) and
-# group size
-GROUP_CASES = tuple((b, n) for n in (1, 63, 64, 65, 512, 1000, 4096)
-                    for b in (1, 8))
+# the grouping's time at [8, 512] with its earlier design, the bits and
+# sweep kernels alone (as first measured by this script on the H100), for
+# the line that prints the cluster kernel's beside it
+GROUP_TWO_KERNEL_MS = 0.0237
+# the grouping kernel: identical to its plain version at each (B, N) of
+# group_cases() and each of these group sizes
 GROUP_SIZES = (-1, 0, 1, 100)
 # one train step of the tiny model at 2x64x128 f32 on the card vs the CPU
 # path: stats at rtol 1e-3 (atol 1e-5), parameters within 1e-4 of each
@@ -895,7 +902,9 @@ def k3_phase(dev, flush, stamp):
     return k3
 
 
-GROUP_KERNELS = ("group_bits", "group_sweep")
+# the grouping's device kernels: the cluster path's one, the two-kernel
+# path's two
+GROUP_KERNELS = ("group_cluster", "group_bits", "group_sweep")
 
 
 def group_case(b, n, kind, dev, seed):
@@ -920,46 +929,92 @@ def group_case(b, n, kind, dev, seed):
     return m.contiguous(), torch.from_numpy(valid_np).to(dev)
 
 
+def group_cases():
+    """The grouping's (B, N) checks: row-block edges (63-65, 128 on two
+    CTAs, 576 on nine), the cluster path's limit on both sides, the
+    two-kernel path and its largest N.  A function, not a constant, so that
+    ``scripts/k3_compare.py`` can load this file beside an older package."""
+    limit = kernels._GROUP_CLUSTER_MAX_N
+    return tuple((b, n) for n in (1, 63, 64, 65, 128, 512, 576, 1000,
+                                  limit - 1, limit, limit + 1, 4096)
+                 for b in (1, 8)) + ((1, kernels._GROUP_MAX_N),)
+
+
+def group_path_launches():
+    """{path: launches so far} of the grouping kernel's two paths."""
+    return {"cluster": kernels.group_leaders.cluster_launches,
+            "two_kernel": kernels.group_leaders.two_kernel_launches}
+
+
 def group_phase(dev, flush, stamp):
-    """The grouping kernel against its plain version on GROUP_CASES, then
-    timed on the operator's own input (K3's IoU of the sorted "train"
-    rows, [8, 512]).  Returns {ms, plain_ms, bound_ms, bound_by}."""
-    for b, n in GROUP_CASES:
+    """The grouping kernel against its plain version at group_cases(), each
+    case on the path ``group_leaders_plan`` names (by the per-path launch
+    counts), then timed on the operator's own input (K3's IoU of the sorted
+    rows) at each of K3_SHAPES.  Returns {ms, plain_ms, bound_ms, bound_by,
+    split} at [8, 512] with the same under "analysis" at [1, 1000], and
+    "paths": the per-path launches of the timed calls."""
+    cases = group_cases()
+    for b, n in cases:
+        path = kernels.group_leaders_plan(n).path
         for kind in ("iou", "mixed"):
             m, valid = group_case(b, n, kind, dev, seed=b * n)
             for gs in GROUP_SIZES:
                 kw = dict(nms_threshold=0.4, group_size=gs)
+                before = group_path_launches()
                 got = kernels.group_leaders(m, valid, **kw)
+                after = group_path_launches()
+                assert {k: after[k] - before[k] for k in after} == {
+                    k: int(k == path) for k in after}, \
+                    f"group_leaders at [{b}, {n}] did not take the " \
+                    f"{path} path: {before} -> {after}"
                 ref = kernels.group_leaders_plain(m, valid, **kw)
                 assert torch.equal(got, ref), \
                     f"group_leaders differs from its plain version at " \
                     f"[{b}, {n}] {kind}, group_size {gs}"
-    print(f"group_leaders: identical to its plain version at {len(GROUP_CASES)}"
-          f" (B, N) from [1, 1] to [8, 4096], IoU and asymmetric overlaps "
-          f"(ties at the threshold, NaN), group sizes {list(GROUP_SIZES)}",
-          flush=True)
-    b, n = K3_SHAPES["train"]
-    boxes_np, scores_np = k3_case("train", b, n)
-    valid = torch.from_numpy(scores_np > 0).to(dev)
-    m = kernels.fused_iou_prune(torch.from_numpy(boxes_np).to(dev), valid)[0]
-    kw = dict(nms_threshold=0.4, group_size=100)
-    leader = kernels.group_leaders(m, valid, **kw)
-    leaders = int((leader == torch.arange(n, device=dev)).sum())
-    ms = time_ms(lambda: kernels.group_leaders(m, valid, **kw), 50, flush)
-    plain_ms = time_ms(lambda: kernels.group_leaders_plain(m, valid, **kw),
-                       10, flush)
-    split = split_ms(lambda: kernels.group_leaders(m, valid, **kw),
-                     GROUP_KERNELS)
-    bound_ms, bound_by = bound(*kernels.group_leaders_work(b, n), PEAK_F32)
-    print(f"group_leaders on the operator's input [{b}, {n}] "
-          f"({int(valid.sum())} valid rows, {leaders} leaders): kernel "
-          f"{ms:.4f} ms ({bound_ms / ms:.1%} of the {bound_ms:.4f} ms bound "
-          f"by {bound_by}), plain {plain_ms:.4f} ms; a call by kernel "
-          f"(torch.profiler) "
-          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} {stamp}",
-          flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    limit = kernels._GROUP_CLUSTER_MAX_N
+    print(f"group_leaders: identical to its plain version at {len(cases)}"
+          f" (B, N) from [1, 1] to [1, {kernels._GROUP_MAX_N}], IoU and "
+          f"asymmetric overlaps (ties at the threshold, NaN), group sizes "
+          f"{list(GROUP_SIZES)}; N <= {limit} on the cluster path, above it "
+          f"on the two-kernel path, as planned", flush=True)
+    out = {}
+    for name, (b, n) in K3_SHAPES.items():
+        boxes_np, scores_np = k3_case(name, b, n)
+        valid = torch.from_numpy(scores_np > 0).to(dev)
+        m = kernels.fused_iou_prune(torch.from_numpy(boxes_np).to(dev),
+                                    valid)[0]
+        kw = dict(nms_threshold=0.4, group_size=100)
+        plan = kernels.group_leaders_plan(n)
+        leader = kernels.group_leaders(m, valid, **kw)
+        assert torch.equal(leader, kernels.group_leaders_plain(m, valid, **kw))
+        leaders = int((leader == torch.arange(n, device=dev)).sum())
+        before = group_path_launches()
+        ms = time_ms(lambda: kernels.group_leaders(m, valid, **kw), 50, flush)
+        after = group_path_launches()
+        paths = {k: after[k] - before[k] for k in after}
+        assert paths == {"cluster": 51, "two_kernel": 0}, \
+            f"the grouping at [{b}, {n}] left the cluster path: {paths}"
+        plain_ms = time_ms(lambda: kernels.group_leaders_plain(m, valid, **kw),
+                           10, flush)
+        split = split_ms(lambda: kernels.group_leaders(m, valid, **kw),
+                         GROUP_KERNELS)
+        bound_ms, bound_by = bound(*kernels.group_leaders_work(b, n), PEAK_F32)
+        earlier = f", earlier design (bits + sweep) {GROUP_TWO_KERNEL_MS} " \
+            f"ms" if name == "train" else ""
+        print(f"group_leaders on the operator's input {name} [{b}, {n}] "
+              f"({int(valid.sum())} valid rows, {leaders} leaders), "
+              f"{plan.path} path, {plan.ctas} CTAs, {plan.smem} B of shared "
+              f"memory a CTA: kernel "
+              f"{ms:.4f} ms ({bound_ms / ms:.1%} of the {bound_ms:.4f} ms "
+              f"bound by {bound_by}){earlier}, plain {plain_ms:.4f} ms; a call "
+              f"by kernel (torch.profiler) "
+              f"{json.dumps({k: round(v, 4) for k, v in split.items()})}; "
+              f"launches by path over the timed calls {json.dumps(paths)} "
+              f"{stamp}", flush=True)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, split=split, paths=paths,
+                         plan=plan._asdict())
+    return dict(out.pop("train"), analysis=out["analysis"])
 
 
 def operator_inputs(name, dev):
@@ -1021,6 +1076,7 @@ def operator_phase(dev, flush, stamp):
         torch.cuda.synchronize()
         kernels.fused_iou_prune.launches = 0
         kernels.group_leaders.launches = 0
+        paths = group_path_launches()
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = groomed_nms_boxes(*args_g)
@@ -1030,6 +1086,8 @@ def operator_phase(dev, flush, stamp):
                     "group_leaders": kernels.group_leaders.launches}
         assert launches == {"fused_iou_prune": 1, "group_leaders": 1}, \
             f"expected one K3 and one grouping launch a call, got {launches}"
+        assert group_path_launches()["cluster"] == paths["cluster"] + 1, \
+            "the operator's grouping left the cluster path"
         same_leader = torch.equal(got.leader.cpu(), ref.leader)
         same_keep = torch.equal(got.keep.cpu(), ref.keep)
         err = (got.rescored.cpu() - ref.rescored).abs().max().item()
@@ -1691,7 +1749,7 @@ def count_kernels(prof):
     """{kernel name: launches} of a torch.profiler trace (``kernel_events``)."""
     kernels_ = kernel_events(prof)
     names = ("head_scores", "nms_mask", "nms_sweep", "iou_prune_kernel",
-             "group_bits", "group_sweep")
+             "group_cluster", "group_bits", "group_sweep")
     return {n: sum(1 for e in kernels_ if n in e.name) for n in names}
 
 
@@ -1861,8 +1919,8 @@ def train_entry_phase(dev, stamp):
         group_leaders=0), s2["launches"]
     assert traced == dict(head_scores=n_eval, nms_mask=n_eval,
                           nms_sweep=n_eval, iou_prune_kernel=TRAIN_STEPS,
-                          group_bits=TRAIN_STEPS,
-                          group_sweep=TRAIN_STEPS), traced
+                          group_cluster=TRAIN_STEPS, group_bits=0,
+                          group_sweep=0), traced
     assert txts == [f"{r.id}.txt" for r in val] and isinstance(ap, dict)
 
     # -- auto-resume: the same run extended to RESUME_STEPS (timed)
@@ -4055,7 +4113,8 @@ def main():
          "launches": train_launches["group_leaders"], "max_abs_err": 0.0,
          "ms": group["ms"], "plain_ms": group["plain_ms"],
          "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
-         "library_ms": None,
+         "library_ms": None, "split": group["split"],
+         "paths": group["paths"], "analysis": group["analysis"],
          "export": {"launches": export_launches["group_leaders"]},
          "options": {"jitter_launches": options["jitter"]["group_leaders"]},
          "parallel": {"train_launches_a_rank_a_step": parallel[

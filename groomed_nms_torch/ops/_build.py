@@ -118,7 +118,8 @@ def group_leaders_lib():
     """The GrooMeD grouping library with its C entry's signature declared."""
     lib = ctypes.CDLL(str(build("group_leaders.cu")))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.group_leaders.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i, p]
+    lib.group_leaders.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i,
+                                  i, p]
     lib.group_leaders.restype = ctypes.c_int
     return lib
 

@@ -22,7 +22,9 @@ eval-mode DenseNet block with BatchNorm folded to (mul, add), for the
 ``group_leaders`` (CUDA C++, ``csrc/group_leaders.cu``) has no TPU kernel
 behind it: it computes GrooMeD-NMS's greedy grouping, which
 ``groomed_nms_tpu/ops/groomed_nms.py::group_leaders`` leaves to XLA as a
-``lax.while_loop``, from the overlap matrix of score-sorted rows.
+``lax.while_loop``, from the overlap matrix of score-sorted rows.  It has
+two paths, chosen from N by ``group_leaders_plan``: one launch on a thread
+block cluster an image, or two kernels for larger N.
 
 Each wrapper checks its inputs and dispatches on the tensors' device: on the
 CPU it runs the kernel's plain PyTorch version (``*_plain``, the oracle the
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -65,9 +68,15 @@ _IOU_TILE = 32               # K3: output tile edge (csrc/iou_prune.cu)
 # f32 operations of one IoU test of K2 and K3: min, max, sub, add and clamp
 # for each side, product, union, clamp, divide, compare
 IOU_TEST_OPS = 16
-# group_leaders: the grouping block keeps two ints a row in shared memory
-# (64 KB at this N); m is 256 MB an image here
+# group_leaders: the two-kernel path's sweep block keeps two ints a row in
+# shared memory (64 KB at this N); m is 256 MB an image here
 _GROUP_MAX_N = 8192
+# the cluster path (csrc/group_leaders.cu): one thread block cluster an
+# image, a CTA a row block of 64 rows, up to 16 CTAs (8 is the portable
+# size, 16 the most Hopper allows), so up to 1024 rows: the operator's
+# [8, 512] and [1, 1000]
+_GROUP_CLUSTER_CTAS = 16
+_GROUP_CLUSTER_MAX_N = _GROUP_CLUSTER_CTAS * _NMS_BLOCK
 _TRIPS_PER_CHECK = 4         # group_leaders_plain: survivor trips per host read
 
 
@@ -492,9 +501,12 @@ def group_leaders(m, valid, *, nms_threshold, group_size):
     Returns [B, N] int64: each row's leader, -1 for padding and for rows
     past the cap (a negative ``group_size`` caps every row out).
 
-    On a CUDA tensor one call is two kernel launches (bits, then the
-    sweep) and counts once in ``group_leaders.launches``; N is at most
-    ``_GROUP_MAX_N`` there.
+    On a CUDA tensor one call takes the path ``group_leaders_plan(N)``
+    gives: up to ``_GROUP_CLUSTER_MAX_N`` rows one launch of the cluster
+    kernel, above it two (bits, then the sweep).  Either counts once in
+    ``group_leaders.launches`` and once in its path's count
+    (``group_leaders.cluster_launches``, ``.two_kernel_launches``); N is at
+    most ``_GROUP_MAX_N`` there.
     """
     if m.dim() != 3 or m.shape[1] != m.shape[2] or m.dtype != torch.float32:
         raise ValueError(f"m must be [B, N, N] f32, got {tuple(m.shape)} "
@@ -527,28 +539,82 @@ def _(m, valid, nms_threshold, group_size):
 def _(m, valid, nms_threshold, group_size):
     _check_contiguous(m=m, valid=valid)
     b, n, _ = m.shape
-    if n > _GROUP_MAX_N or b > 65535:
+    if b > 65535:
         raise ValueError(f"group_leaders takes B <= 65535 and N <= "
                          f"{_GROUP_MAX_N}, got B={b}, N={n}")
-    # rank < group_size + 1 for an integer rank in [0, n): the same as
-    # rank < cap with cap an integer in [0, n + 1]
-    cap = n + 1 if group_size >= n else max(math.ceil(group_size + 1), 0)
-    lib = _build.group_leaders_lib()
-    words = -(-n // _NMS_BLOCK)
-    sup = torch.empty((b, n, words), dtype=torch.int64, device=m.device)
-    over = torch.empty_like(sup)
-    out = torch.empty((b, n), dtype=torch.int64, device=m.device)
-    with torch.cuda.device(m.device):
-        err = lib.group_leaders(
-            m.data_ptr(), valid.data_ptr(), sup.data_ptr(), over.data_ptr(),
-            out.data_ptr(), b, n, nms_threshold, cap,
-            torch.cuda.current_stream().cuda_stream)
-    _check_launch(err, "group_leaders")
+    plan = group_leaders_plan(n)
+    out = _group_leaders_launch(m, valid, nms_threshold, group_size, plan)
     group_leaders.launches += 1
+    if plan.path == "cluster":
+        group_leaders.cluster_launches += 1
+    else:
+        group_leaders.two_kernel_launches += 1
     return out
 
 
 group_leaders.launches = 0
+# the launches of each path (csrc/group_leaders.cu): one cluster kernel, or
+# the bits and sweep kernels
+group_leaders.cluster_launches = 0
+group_leaders.two_kernel_launches = 0
+
+
+class GroupPlan(NamedTuple):
+    """How ``group_leaders`` runs at one N on the card: ``path`` "cluster"
+    (one launch, a thread block cluster of ``ctas`` CTAs an image, one a row
+    block of 64 rows) or "two_kernel" (the bits kernel, then the sweep;
+    ``ctas`` 0); ``smem`` the dynamic shared memory of a block of the
+    cluster kernel or of the sweep, in bytes, as ``csrc/group_leaders.cu``
+    computes it."""
+    path: str
+    ctas: int
+    smem: int
+
+
+def group_leaders_plan(n):
+    """The path of ``group_leaders`` at N rows on the card (``GroupPlan``).
+
+    Up to ``_GROUP_CLUSTER_MAX_N`` rows the cluster path on nb = ceil(N /
+    64) CTAs; its shared memory is the CTA's over words ([nb, 64] u64), two
+    mailbox words and a leader word a row block and its valid word (u64), a
+    group a row of its block and a group count a row of the image (int32).
+    Above it the two-kernel path, whose sweep keeps three u64 a row block
+    and two int32 a row.  Raises ValueError above ``_GROUP_MAX_N``."""
+    if n > _GROUP_MAX_N:
+        raise ValueError(f"group_leaders takes N <= {_GROUP_MAX_N}, got "
+                         f"N={n}")
+    nb = -(-n // _NMS_BLOCK)
+    if n <= _GROUP_CLUSTER_MAX_N:
+        return GroupPlan("cluster", max(nb, 1),
+                         8 * (nb * _NMS_BLOCK + 3 * nb + 1)
+                         + 4 * (_NMS_BLOCK + n))
+    return GroupPlan("two_kernel", 0, 3 * nb * 8 + 2 * n * 4)
+
+
+def _group_leaders_launch(m, valid, nms_threshold, group_size, plan):
+    """One launch of ``csrc/group_leaders.cu`` on contiguous CUDA tensors by
+    ``plan``; returns the [B, N] int64 leaders.  Counts nothing: the custom
+    op counts its own launches."""
+    b, n, _ = m.shape
+    # rank < group_size + 1 for an integer rank in [0, n): the same as
+    # rank < cap with cap an integer in [0, n + 1]
+    cap = n + 1 if group_size >= n else max(math.ceil(group_size + 1), 0)
+    lib = _build.group_leaders_lib()
+    out = torch.empty((b, n), dtype=torch.int64, device=m.device)
+    sup = over = None
+    if plan.path == "two_kernel":
+        words = -(-n // _NMS_BLOCK)
+        sup = torch.empty((b, n, words), dtype=torch.int64, device=m.device)
+        over = torch.empty_like(sup)
+    with torch.cuda.device(m.device):
+        err = lib.group_leaders(
+            m.data_ptr(), valid.data_ptr(),
+            None if sup is None else sup.data_ptr(),
+            None if over is None else over.data_ptr(), out.data_ptr(), b, n,
+            nms_threshold, cap, plan.ctas,
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "group_leaders")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -23,14 +23,15 @@ PEAK_TF32 = 494.7e12
 # faster (the former: 164.9 TFLOP/s)
 PEAK_F32_PRODUCTS = max(PEAK_TF32 / 3, PEAK_F32)
 
-# the port's kernels by wrapper name, and the device kernel of each that
-# runs once a wrapper launch (substrings of the profiler's kernel names):
-# K1's Triton kernel, K2's sweep (after its mask kernel), K3, and the
-# grouping's sweep (after its bits kernel)
-TRACE_KERNELS = {"fused_head_scores": "head_scores",
-                 "greedy_nms": "nms_sweep",
-                 "fused_iou_prune": "iou_prune_kernel",
-                 "group_leaders": "group_sweep"}
+# the port's kernels by wrapper name, and the device kernels of each of
+# which one runs once a wrapper launch (substrings of the profiler's kernel
+# names): K1's Triton kernel, K2's sweep (after its mask kernel), K3, and
+# the grouping's cluster kernel or, on its two-kernel path, its sweep (after
+# its bits kernel)
+TRACE_KERNELS = {"fused_head_scores": ("head_scores",),
+                 "greedy_nms": ("nms_sweep",),
+                 "fused_iou_prune": ("iou_prune_kernel",),
+                 "group_leaders": ("group_cluster", "group_sweep")}
 
 
 def card_line():
@@ -99,7 +100,8 @@ def trace_counts(path):
     """{wrapper name: device kernels of that name} in a Chrome trace JSON
     written by ``torch.profiler`` (events of category "kernel")."""
     names = [e.get("name", "") for e in _kernel_events(path)]
-    return {k: sum(v in n for n in names) for k, v in TRACE_KERNELS.items()}
+    return {k: sum(any(v in n for v in vs) for n in names)
+            for k, vs in TRACE_KERNELS.items()}
 
 
 def trace_kernel_ms(path):

@@ -44,6 +44,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = Path("groomed_nms_torch/csrc/iou_prune.cu")
+# run as a file, this directory comes first on sys.path, and
+# scripts/profile.py there shadows the standard library's profile (which
+# the custom ops' first call imports through torch._dynamo)
+if Path(sys.path[0]).resolve() == ROOT / "scripts":
+    sys.path.pop(0)
 
 
 def load(path):

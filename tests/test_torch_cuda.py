@@ -411,9 +411,12 @@ def test_groomed_nms_operator_on_cuda_matches_cpu(cuda, b, n):
     ref = groomed_nms_boxes(scores, boxes, valid)
     before = kernels.fused_iou_prune.launches
     before_g = kernels.group_leaders.launches
+    before_c = kernels.group_leaders.cluster_launches
     got = groomed_nms_boxes(scores.to(cuda), boxes.to(cuda), valid.to(cuda))
     assert kernels.fused_iou_prune.launches == before + 1
     assert kernels.group_leaders.launches == before_g + 1
+    # both shapes take the one-launch cluster path
+    assert kernels.group_leaders.cluster_launches == before_c + 1
     assert torch.equal(got.leader.cpu(), ref.leader)
     assert torch.equal(got.keep.cpu(), ref.keep) and ref.keep.any()
     torch.testing.assert_close(got.rescored.cpu(), ref.rescored, rtol=0,
@@ -458,18 +461,36 @@ def _grouping_case(b, n, kind, dev, seed):
     return m.contiguous(), torch.from_numpy(valid).to(dev)
 
 
+# row-block edges (63-65, 128: two CTAs, 576: nine), the analysis size, the
+# cluster path's limit on both sides, the two-kernel path, its largest N
+_GROUP_LIMIT = kernels._GROUP_CLUSTER_MAX_N
+_GROUP_SHAPES = [(b, n) for n in (1, 63, 64, 65, 128, 512, 576, 1000,
+                                  _GROUP_LIMIT - 1, _GROUP_LIMIT,
+                                  _GROUP_LIMIT + 1, 4096)
+                 for b in (1, 8)] + [(1, kernels._GROUP_MAX_N)]
+
+
 @pytest.mark.parametrize("kind", ["iou", "mixed"])
-@pytest.mark.parametrize("n", [1, 63, 64, 65, 512, 1000, 4096])
-@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("b,n", _GROUP_SHAPES)
 def test_group_leaders_kernel_matches_plain(cuda, b, n, kind):
     """The grouping kernel's leaders equal the plain version's for every
-    group size, including a negative one (every row capped out)."""
+    group size, including a negative one (every row capped out), on the
+    path ``group_leaders_plan`` names (its launch count moves, the other
+    path's does not)."""
     m, valid = _grouping_case(b, n, kind, cuda, seed=b * n)
+    path = kernels.group_leaders_plan(n).path
+    assert path == ("cluster" if n <= _GROUP_LIMIT else "two_kernel")
     for group_size in (-1, 0, 1, 100):
         kw = dict(nms_threshold=0.4, group_size=group_size)
         before = kernels.group_leaders.launches
+        paths = (kernels.group_leaders.cluster_launches,
+                 kernels.group_leaders.two_kernel_launches)
         got = kernels.group_leaders(m, valid, **kw)
         assert kernels.group_leaders.launches == before + 1
+        on_cluster = path == "cluster"
+        assert (kernels.group_leaders.cluster_launches,
+                kernels.group_leaders.two_kernel_launches) == (
+            paths[0] + on_cluster, paths[1] + (not on_cluster))
         ref = kernels.group_leaders_plain(m, valid, **kw)
         torch.cuda.synchronize()
         assert got.dtype == torch.int64 and got.shape == (b, n)
