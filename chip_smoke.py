@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- a CUDA card is required; prints its name and power limit;
-  2. build   -- nvcc builds the greedy-NMS, dense-block, IoU/prune and
-                grouping libraries (csrc/greedy_nms.cu, csrc/dense_block.cu,
+  2. build   -- nvcc builds the greedy-NMS, dense-block (bf16 and f32),
+                IoU/prune and grouping libraries (csrc/greedy_nms.cu,
+                csrc/dense_block.cu, csrc/dense_block_f32.cu,
                 csrc/iou_prune.cu, csrc/group_leaders.cu), and the host
                 compiler the PNG unfilter (csrc/png_unfilter.cpp) and the
                 C++ evaluator (make -C eval), all at once, into
@@ -40,7 +41,9 @@ Phases, in order; any failure raises and exits non-zero:
                 bound (kernels.dense_block_work at the card's peaks; f32
                 products at 3xTF32's rate) and the kernel's share of it,
                 and as a yardstick the block's 2L cuDNN convolutions alone
-                at the same shapes in the same dtype;
+                at the same shapes in the same dtype; in f32 a call split
+                by kernel (tf32_split, the 1x1, the 3x3; torch.profiler)
+                beside the earlier design's times (K4_F32_EARLIER);
   7. fast_eval -- the weight-folded engine: (a) on the card against the CPU
                 path at 2x64x128 bf16; (b) against the rpn3d engine at full
                 size from one RPN3D with perturbed BatchNorm statistics;
@@ -321,6 +324,19 @@ K4_BLOCKS = {"block1": (8, 64, 128, 440, 6, 32, 128, 1),
 K4_MORE_BLOCKS = {"block3": (8, 256, 32, 110, 24, 32, 128, 1),
                   "block4": (8, 512, 32, 110, 16, 32, 128, 2)}
 K4_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# f32 K4's kernels, split by name in phase 6: the prep kernel (once a call)
+# and the 1x1 and 3x3 (L each)
+K4_F32_KERNELS = ("tf32_split", "conv1x1_bn_relu", "conv3x3")
+# f32 K4's earlier design (the TF32 split inside both product loops, both
+# kernels on mma.sync), read in one call by scripts/k4_compare.py --dtype
+# f32 on that design's tree (an H100 80GB HBM3 at 700 W): ms a call (CUDA
+# events) and its 1x1 / 3x3 kernels' ms (torch.profiler), printed as
+# earlier values beside the new design's split; not part of this run
+K4_F32_EARLIER = {
+    "block1": (6.9113, {"conv1x1_bn_relu": 2.4772, "conv3x3": 4.364}),
+    "block2": (5.2759, {"conv1x1_bn_relu": 2.691, "conv3x3": 2.559}),
+    "block3": (4.4736, {"conv1x1_bn_relu": 3.0197, "conv3x3": 1.2811}),
+    "block4": (3.4448, {"conv1x1_bn_relu": 2.4331, "conv3x3": 0.862})}
 # K4 vs its plain version over the new channels: max |err| / max |ref| and
 # mean |err| / mean |ref|; the two sum in other orders, so a bf16 rounding
 # of h or of an output may land one step (2^-8 relative) apart.  Held layer
@@ -563,6 +579,20 @@ def k4_phase(dev, flush, stamp):
                 ms=ms, plain_ms=plain_ms, **figures, lib_ms=lib_ms,
                 lib_tf32_ms=lib_tf32_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+            if f32:
+                split = split_ms(
+                    lambda: kernels.dense_block_eval(*bargs, dilation=dil),
+                    K4_F32_KERNELS, {"tf32_split": 1,
+                                     "conv1x1_bn_relu": dims[4],
+                                     "conv3x3": dims[4]})
+                earlier_ms, earlier_split = K4_F32_EARLIER[name]
+                print(f"K4 {name} f32 a call by kernel (torch.profiler): "
+                      f"{json.dumps({k: round(v, 4) for k, v in split.items()})}"
+                      f" ms, {ms:.4f} ms in all; earlier design (the split "
+                      f"in the product loops, mma.sync; earlier values, "
+                      f"K4_F32_EARLIER) {earlier_ms} ms, by kernel "
+                      f"{json.dumps(earlier_split)} {stamp}", flush=True)
+                k4[dname][name]["split"] = split
             del bargs
     torch.backends.cudnn.allow_tf32 = tf32
     return k4
@@ -3763,8 +3793,8 @@ def main():
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    sources = ("greedy_nms.cu", "dense_block.cu", "iou_prune.cu",
-               "group_leaders.cu", "png_unfilter.cpp")
+    sources = ("greedy_nms.cu", "dense_block.cu", "dense_block_f32.cu",
+               "iou_prune.cu", "group_leaders.cu", "png_unfilter.cpp")
     # one compiler per source, and the C++ evaluator (eval/Makefile) beside
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         evaluator = pool.submit(ensure_binary)
@@ -3772,6 +3802,7 @@ def main():
         evaluator = evaluator.result()
     _build.greedy_nms_lib()
     _build.dense_block_lib()
+    _build.dense_block_f32_lib()
     _build.iou_prune_lib()
     _build.group_leaders_lib()
     _build.png_unfilter_lib()
@@ -4086,7 +4117,9 @@ def main():
          "source": "groomed_nms_torch/csrc/dense_block.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_dense_block.py:140",
          **k4_figures("bf16", fe_launches["dense_block_eval"]),
-         "f32": k4_figures("f32", fe32_launches["dense_block_eval"]),
+         "f32": {"source": "groomed_nms_torch/csrc/dense_block_f32.cu",
+                 **k4_figures("f32", fe32_launches["dense_block_eval"]),
+                 "split": {n: v["split"] for n, v in k4["f32"].items()}},
          "blocks": k4,
          "parallel": parallel["dense_block_eval"]},
         # launches: the full-size train loop's; ms at its shape [8, 512, 4]

@@ -1,4 +1,5 @@
-// One eval-mode DenseNet block (K4) for Hopper (sm_90a), in bf16 or in f32.
+// One eval-mode DenseNet block (K4) for Hopper (sm_90a), in bf16.  The f32
+// form (3xTF32, its own tiling and wgmma) is csrc/dense_block_f32.cu.
 //
 // Replaces the TPU kernel groomed_nms_tpu/ops/pallas_dense_block.py::
 // dense_block_eval (body _make_block_kernel), which is generic in its
@@ -10,20 +11,17 @@
 //
 // What bounds it on this card: operations.  The flagship's block 1
 // ([8, 64, 128, 440] -> 256 channels, L = 6) is 298.97 GFLOP against 288.4
-// MB of input read once and stack written once in bf16 (576.7 MB in f32):
-// 0.30 ms at 989 TFLOP/s (bf16) against 0.09 ms at 3.35 TB/s; block 2
-// ([8, 128, 64, 220] -> 512, L = 12) is 204.85 GFLOP, 0.21 ms.  In f32 the
-// least time is that of f32-accurate products on the tensor cores, three
-// TF32 products for one (below): 3 x FLOP at 494.7 TFLOP/s, 1.81 ms for
-// block 1 (f32 FMA, 67 TFLOP/s, would take 4.46).  The stack (28.8 MB per
-// image for block 1 in bf16) does not fit in shared memory, so it stays in
-// device memory ([B, H, W, cmax], the channels_last layout of
-// [B, cmax, H, W]) and each layer runs as two implicit GEMMs on the tensor
+// MB of input read once and stack written once: 0.30 ms at 989 TFLOP/s
+// against 0.09 ms at 3.35 TB/s; block 2 ([8, 128, 64, 220] -> 512, L = 12)
+// is 204.85 GFLOP, 0.21 ms.  The stack (28.8 MB per image for block 1)
+// does not fit in shared memory, so it stays in device memory ([B, H, W,
+// cmax], the channels_last layout of [B, cmax, H, W]) and each layer runs
+// as two implicit GEMMs on the tensor
 // cores (ldmatrix + mma.sync), both fed by cp.async rings in dynamic shared
 // memory:
 //   kernel (a) conv1x1_bn_relu: M = 128 pixels, N = bw, K = cin in 64-byte
-//     steps (32 bf16 or 16 f32 channels) through a 4-stage ring of
-//     [128 x step] stack and [bw x step] w1 tiles.  The layer's mul1/add1
+//     steps (32 channels) through a 4-stage ring of [128 x step] stack
+//     and [bw x step] w1 tiles.  The layer's mul1/add1
 //     are staged once per block; each thread applies BN1 + ReLU to the
 //     16-byte chunks it copied, between the stage's wait and the barrier, so
 //     no normalised copy of the stack is ever written.  The epilogue
@@ -44,57 +42,30 @@
 //     phase's subgrid, so the halo is 18 x 18 pixels whatever d is.  The
 //     epilogue writes the G new channels into stack channels [cin, cin + G)
 //     through shared memory: no concatenation.
-// Both element types share every tile in bytes: a k step of 64 bytes in
-// shared-memory rows padded by 16 bytes (a row stride of 80 bytes), so the
-// eight row addresses of each ldmatrix phase fall in eight different bank
-// groups, and one mma's depth of 32 bytes (k16 in bf16, k8 in tf32).
-// ldmatrix moves 16-byte rows whatever they hold: an m8n8 .b16 matrix of
-// f32 rows gives each lane the f32 at (row lane / 4, column lane % 4),
-// which is the m16n8k8 tf32 fragment's layout, so the f32 kernels use the
-// same addresses as the bf16 ones.
-//
-// f32 products (3xTF32): a single TF32 product keeps 11 significant bits of
-// each operand, errors of order 2^-11 (~5e-4), which f32 must not lose.  Each
-// f32 operand x is split into big = tf32(x) and small = tf32(x - big) (the
-// difference is exact), and a * b is taken as as * bb + ab * bs + ab * bb
-// on mma.sync.m16n8k8.tf32, off by the dropped as * bs (< 2^-22 |a b|) and
-// small's own rounding.  The tensor cores add their sums without the
-// round-to-nearest of an f32 add, so the f32 kernels gather each 64-byte k
-// step's sums (16 channels, or one tap's 16 channels) in a register tile of
-// their own and add that tile to the running sums with an f32 add: the
-// running sums of K up to ~1,150 then round as f32 sums do.  That second
-// set of sums takes registers: the f32 3x3 is built for one block of 8
-// warps an SM (255 registers, a few spilled); the f32 1x1 is held to 128
-// registers for two blocks an SM (a few bytes spilled), which ran its
-// flagship blocks 11-15% faster than one block of 197 registers on an H100
-// (scripts/k4_compare.py --dtype f32); two blocks of the 3x3 gained
-// nothing.
+// Every tile has a k step of 64 bytes in shared-memory rows padded by 16
+// bytes (a row stride of 80 bytes), so the eight row addresses of each
+// ldmatrix phase fall in eight different bank groups, and one mma's depth of
+// 32 bytes (k16).
 //
 // What it still leaves, on block 1: the h round trip through device memory
 // (0.69 GB written by (a) and read back by (b) in bf16, ~0.4 ms at 3.35
 // TB/s) and (a)'s O(L^2) stack re-reads (0.78 GB, ~0.23 ms), against 0.29 GB
 // that the block must move; every block re-reading its layer's weights from
 // L2; and mma.sync's rate, below wgmma's.  wgmma + TMA and one fused kernel
-// per layer that keeps h on chip are the next steps.  In f32, besides, every
-// warp splits its own fragments, the 3x3 each halo fragment once per tap: a
-// split once per stage in shared memory would take that ALU work off the
-// tensor cores' path.
+// per layer that keeps h on chip are the next steps.
 //
 // Rounding points, the TPU kernel's (the plain version, ops/kernels.py::
 // dense_block_eval_plain, has the same ones): each folded norm is x * mul +
-// add in the block's dtype as JAX applies it, the product rounded and then
-// the sum, then ReLU (bn_relu; -fmad=false keeps the two apart in f32
-// too); the 1x1's products summed in f32 and, in bf16, the sum rounded to
-// bf16 before BN2; the 3x3 sums in f32, rounded to bf16 in bf16.
+// add in bf16 as JAX applies it, the product rounded and then the sum, then
+// ReLU (bn_relu); the 1x1's products summed in f32 and the sum rounded to
+// bf16 before BN2; the 3x3 sums in f32, rounded to bf16.
 //
-// Sizes: bf16 or f32; c0 and G multiples of 8, G <= 64, bw a multiple of 32
-// up to 128 (the wrapper checks; DenseNet-121 has G = 32, bw = 128).
+// Sizes: c0 and G multiples of 8, G <= 64, bw a multiple of 32 up to 128
+// (the wrapper checks; DenseNet-121 has G = 32, bw = 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -112,17 +83,14 @@ constexpr int kTile = 16;
 constexpr int kHalo = kTile + 2;
 constexpr int kHaloPix = kHalo * kHalo;
 
-// The tiles in elements of T; the same bytes for both types.
+// The tiles in elements of T.
 template <typename T>
 struct Tile {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int kVec = 16 / (int)sizeof(T);  // a 16-byte chunk
   static constexpr int kStep = 4 * kVec;            // a k step: 64 bytes
   static constexpr int kLd = kStep + kVec;          // row stride: 80 bytes
   static constexpr int kMmaK = 2 * kVec;            // an mma's depth: 32 B
-  // kernel (b)'s blocks an SM: f32 one (its second set of sums, above),
-  // bf16 two; kernel (a) is built for two in both
-  static constexpr int kMinBlocks3x3 = kF32 ? 1 : 2;
+  static constexpr int kMinBlocks3x3 = 2;           // kernel (b)'s blocks an SM
 };
 
 // relu(x * m + a) for two channels, rounded as JAX's bf16 ops round: the
@@ -154,19 +122,6 @@ __device__ __forceinline__ void bn_relu16(bf16* x, const bf16* m,
   *reinterpret_cast<uint4*>(x) = u;
 }
 
-// the f32 form: the product, then the sum (no FMA under -fmad=false)
-__device__ __forceinline__ void bn_relu16(float* x, const float* m,
-                                          const float* a) {
-  float4 v = *reinterpret_cast<float4*>(x);
-  const float4 mv = *reinterpret_cast<const float4*>(m);
-  const float4 av = *reinterpret_cast<const float4*>(a);
-  v.x = fmaxf(v.x * mv.x + av.x, 0.0f);
-  v.y = fmaxf(v.y * mv.y + av.y, 0.0f);
-  v.z = fmaxf(v.z * mv.z + av.z, 0.0f);
-  v.w = fmaxf(v.w * mv.w + av.w, 0.0f);
-  *reinterpret_cast<float4*>(x) = v;
-}
-
 // kernel (a)'s epilogue for two channels n, n + 1: the 1x1's f32 sums
 // (rounded to bf16 in bf16), then BN2 + ReLU
 __device__ __forceinline__ void store_bn_relu2(bf16* dst, float c0, float c1,
@@ -177,27 +132,14 @@ __device__ __forceinline__ void store_bn_relu2(bf16* dst, float c0, float c1,
               *reinterpret_cast<const __nv_bfloat162*>(a));
 }
 
-__device__ __forceinline__ void store_bn_relu2(float* dst, float c0, float c1,
-                                               const float* m,
-                                               const float* a) {
-  *reinterpret_cast<float2*>(dst) =
-      make_float2(fmaxf(c0 * m[0] + a[0], 0.0f), fmaxf(c1 * m[1] + a[1], 0.0f));
-}
-
 // kernel (b)'s epilogue for two channels: the f32 sums in the block's dtype
 __device__ __forceinline__ void store2(bf16* dst, float c0, float c1) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(c0, c1);
 }
 
-__device__ __forceinline__ void store2(float* dst, float c0, float c1) {
-  *reinterpret_cast<float2*>(dst) = make_float2(c0, c1);
-}
-
 __device__ __forceinline__ void set_zero(bf16& x) {
   x = __float2bfloat16(0.0f);
 }
-
-__device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -241,43 +183,6 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[16 x 8] += a[16 x 8] (row) * b[8 x 8] (col), tf32 in, f32 sums
-__device__ __forceinline__ void mma1688(float c[4], const uint32_t a[4],
-                                        const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// f32 fragments (as loaded, in `big`) -> big = tf32(x), small =
-// tf32(x - big); x - big is exact
-template <int N>
-__device__ __forceinline__ void split_tf32(uint32_t (&big)[N],
-                                           uint32_t (&small)[N]) {
-#pragma unroll
-  for (int q = 0; q < N; ++q) {
-    const float x = __uint_as_float(big[q]);
-    uint32_t hi, lo;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-    const float rest = x - __uint_as_float(hi);
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-    big[q] = hi;
-    small[q] = lo;
-  }
-}
-
-// c += a * b at f32 accuracy from the tf32 parts: the small terms first
-__device__ __forceinline__ void mma_3xtf32(float c[4], const uint32_t ab[4],
-                                           const uint32_t as[4],
-                                           const uint32_t bb[2],
-                                           const uint32_t bs[2]) {
-  mma1688(c, as, bb);
-  mma1688(c, ab, bs);
-  mma1688(c, ab, bb);
 }
 
 // Fragment addresses for ldmatrix from [rows][k] tiles (k contiguous, 80
@@ -387,61 +292,23 @@ conv1x1_bn_relu(const T* __restrict__ stack, long long npix, int cmax,
       load_tile(kt + kStages - 1, (kt + kStages - 1) % kStages);
     cp_async_commit();
 
-    if constexpr (!Tl::kF32) {
 #pragma unroll
-      for (int kk = 0; kk < kBK; kk += Tl::kMmaK) {
-        uint32_t a[2][4];
+    for (int kk = 0; kk < kBK; kk += Tl::kMmaK) {
+      uint32_t a[2][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          ldmatrix_x4(a[i], As + (wm * 32 + i * 16 + (lane & 15)) * kLdA + kk +
-                                (lane >> 4) * kV);
-#pragma unroll
-        for (int jp = 0; jp < kNT / 2; ++jp) {
-          uint32_t b[4];
-          ldmatrix_x4(b, Bs + (wn * kWN + jp * 16 + b_row(lane)) * kLdA + kk +
-                             b_koff<T>(lane));
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma16816(acc[i][2 * jp], a[i], b);
-            mma16816(acc[i][2 * jp + 1], a[i], b + 2);
-          }
-        }
-      }
-    } else {
-      // 3xTF32: the A fragments of the step split once; each pair of n8
-      // tiles gathers the step's sums in `part`, added to acc in f32
-      constexpr int kKs = kBK / Tl::kMmaK;     // mma depths a step
-      uint32_t ab[kKs][2][4], as[kKs][2][4];
-#pragma unroll
-      for (int s = 0; s < kKs; ++s)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          ldmatrix_x4(ab[s][i], As + (wm * 32 + i * 16 + (lane & 15)) * kLdA +
-                                    s * Tl::kMmaK + (lane >> 4) * kV);
-          split_tf32(ab[s][i], as[s][i]);
-        }
+      for (int i = 0; i < 2; ++i)
+        ldmatrix_x4(a[i], As + (wm * 32 + i * 16 + (lane & 15)) * kLdA + kk +
+                              (lane >> 4) * kV);
 #pragma unroll
       for (int jp = 0; jp < kNT / 2; ++jp) {
-        float part[2][2][4] = {};
+        uint32_t b[4];
+        ldmatrix_x4(b, Bs + (wn * kWN + jp * 16 + b_row(lane)) * kLdA + kk +
+                           b_koff<T>(lane));
 #pragma unroll
-        for (int s = 0; s < kKs; ++s) {
-          uint32_t bb[4], bs[4];
-          ldmatrix_x4(bb, Bs + (wn * kWN + jp * 16 + b_row(lane)) * kLdA +
-                              s * Tl::kMmaK + b_koff<T>(lane));
-          split_tf32(bb, bs);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma_3xtf32(part[i][0], ab[s][i], as[s][i], bb, bs);
-            mma_3xtf32(part[i][1], ab[s][i], as[s][i], bb + 2, bs + 2);
-          }
+        for (int i = 0; i < 2; ++i) {
+          mma16816(acc[i][2 * jp], a[i], b);
+          mma16816(acc[i][2 * jp + 1], a[i], b + 2);
         }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            acc[i][2 * jp][q] += part[i][0][q];
-            acc[i][2 * jp + 1][q] += part[i][1][q];
-          }
       }
     }
   }
@@ -550,87 +417,30 @@ conv3x3(const T* __restrict__ h, int bw, int height, int width, int dil,
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int ty = tap / 3, tx = tap % 3;
-      if constexpr (!Tl::kF32) {
 #pragma unroll
-        for (int kk = 0; kk < kKC; kk += Tl::kMmaK) {
-          uint32_t a[2][4];
+      for (int kk = 0; kk < kKC; kk += Tl::kMmaK) {
+        uint32_t a[2][4];
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int hp = (warp * 2 + i + ty) * kHalo + (lane & 15) + tx;
-            ldmatrix_x4(a[i], hs + hp * kLdB + kk + (lane >> 4) * kV);
-          }
-          const T* wt = ws + tap * G * kLdB + kk + b_koff<T>(lane);
-#pragma unroll
-          for (int jp = 0; jp < NT / 2; ++jp) {
-            uint32_t b[4];
-            ldmatrix_x4(b, wt + (jp * 16 + b_row(lane)) * kLdB);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              mma16816(acc[i][2 * jp], a[i], b);
-              mma16816(acc[i][2 * jp + 1], a[i], b + 2);
-            }
-          }
-          if (NT % 2) {
-            uint32_t b[2];
-            ldmatrix_x2(b, wt + ((NT - 1) * 8 + (lane & 7)) * kLdB);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) mma16816(acc[i][NT - 1], a[i], b);
-          }
+        for (int i = 0; i < 2; ++i) {
+          const int hp = (warp * 2 + i + ty) * kHalo + (lane & 15) + tx;
+          ldmatrix_x4(a[i], hs + hp * kLdB + kk + (lane >> 4) * kV);
         }
-      } else {
-        // 3xTF32, as in kernel (a): the tap's A fragments split once, the
-        // tap's 16 channels summed in `part`, added to acc in f32
-        constexpr int kKs = kKC / Tl::kMmaK;
-        uint32_t ab[kKs][2][4], as[kKs][2][4];
-#pragma unroll
-        for (int s = 0; s < kKs; ++s)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int hp = (warp * 2 + i + ty) * kHalo + (lane & 15) + tx;
-            ldmatrix_x4(ab[s][i],
-                        hs + hp * kLdB + s * Tl::kMmaK + (lane >> 4) * kV);
-            split_tf32(ab[s][i], as[s][i]);
-          }
-        const T* wt = ws + tap * G * kLdB + b_koff<T>(lane);
+        const T* wt = ws + tap * G * kLdB + kk + b_koff<T>(lane);
 #pragma unroll
         for (int jp = 0; jp < NT / 2; ++jp) {
-          float part[2][2][4] = {};
+          uint32_t b[4];
+          ldmatrix_x4(b, wt + (jp * 16 + b_row(lane)) * kLdB);
 #pragma unroll
-          for (int s = 0; s < kKs; ++s) {
-            uint32_t bb[4], bs[4];
-            ldmatrix_x4(bb, wt + (jp * 16 + b_row(lane)) * kLdB +
-                                s * Tl::kMmaK);
-            split_tf32(bb, bs);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-              mma_3xtf32(part[i][0], ab[s][i], as[s][i], bb, bs);
-              mma_3xtf32(part[i][1], ab[s][i], as[s][i], bb + 2, bs + 2);
-            }
+          for (int i = 0; i < 2; ++i) {
+            mma16816(acc[i][2 * jp], a[i], b);
+            mma16816(acc[i][2 * jp + 1], a[i], b + 2);
           }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              acc[i][2 * jp][q] += part[i][0][q];
-              acc[i][2 * jp + 1][q] += part[i][1][q];
-            }
         }
         if (NT % 2) {
-          float part[2][4] = {};
+          uint32_t b[2];
+          ldmatrix_x2(b, wt + ((NT - 1) * 8 + (lane & 7)) * kLdB);
 #pragma unroll
-          for (int s = 0; s < kKs; ++s) {
-            uint32_t bb[2], bs[2];
-            ldmatrix_x2(bb, wt + ((NT - 1) * 8 + (lane & 7)) * kLdB +
-                                s * Tl::kMmaK);
-            split_tf32(bb, bs);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              mma_3xtf32(part[i], ab[s][i], as[s][i], bb, bs);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][NT - 1][q] += part[i][q];
+          for (int i = 0; i < 2; ++i) mma16816(acc[i][NT - 1], a[i], b);
         }
       }
     }
@@ -768,12 +578,11 @@ int run_block(void* stack, void* h, const void* mul1, const void* add1,
 }  // namespace
 
 // stack [B, H, W, cmax] with the block input in channels [0, c0); h scratch
-// [B * H * W, bw]; per layer l (all contiguous, of the entry's type):
+// [B * H * W, bw]; per layer l (all contiguous bf16):
 // mul1/add1 [L, cmax], w1 [L, bw, cmax], mul2/add2 [L, bw],
 // w2 [L, G, 9 * bw] with k = (ty * 3 + tx) * bw + channel.  Fills channels
 // [c0, cmax) of the stack: 2 launches per layer on `stream`.  Returns 0, or
 // the first CUDA error (cudaErrorInvalidValue for a size it does not take).
-// dense_block_eval takes bf16, dense_block_eval_f32 f32.
 extern "C" int dense_block_eval(void* stack, void* h, const void* mul1,
                                 const void* add1, const void* w1,
                                 const void* mul2, const void* add2,
@@ -784,16 +593,4 @@ extern "C" int dense_block_eval(void* stack, void* h, const void* mul1,
   return run_block<bf16>(stack, h, mul1, add1, w1, mul2, add2, w2, batch,
                          height, width, c0, cmax, layers, bw, growth,
                          dilation, stream);
-}
-
-extern "C" int dense_block_eval_f32(void* stack, void* h, const void* mul1,
-                                    const void* add1, const void* w1,
-                                    const void* mul2, const void* add2,
-                                    const void* w2, int batch, int height,
-                                    int width, int c0, int cmax, int layers,
-                                    int bw, int growth, int dilation,
-                                    void* stream) {
-  return run_block<float>(stack, h, mul1, add1, w1, mul2, add2, w2, batch,
-                          height, width, c0, cmax, layers, bw, growth,
-                          dilation, stream);
 }

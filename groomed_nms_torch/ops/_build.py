@@ -126,13 +126,29 @@ def group_leaders_lib():
 
 @functools.cache
 def dense_block_lib():
-    """The dense-block (K4) library with its C entries' signatures declared:
-    ``dense_block_eval`` (bf16) and ``dense_block_eval_f32``."""
+    """The bf16 dense-block (K4) library with its C entry's signature
+    declared."""
     lib = ctypes.CDLL(str(build("dense_block.cu")))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.dense_block_eval, lib.dense_block_eval_f32):
-        fn.argtypes = [p] * 8 + [i] * 9 + [p]
-        fn.restype = ctypes.c_int
+    lib.dense_block_eval.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.dense_block_eval.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def dense_block_f32_lib():
+    """The f32 dense-block (K4, 3xTF32) library with its C entries'
+    signatures declared: ``dense_block_eval_f32`` (a block), its scratch
+    size ``dense_block_eval_f32_scratch`` and ``tf32_split_f32`` (the prep
+    kernel alone)."""
+    lib = ctypes.CDLL(str(build("dense_block_f32.cu")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dense_block_eval_f32.argtypes = [p] * 9 + [i] * 9 + [p]
+    lib.dense_block_eval_f32.restype = ctypes.c_int
+    lib.dense_block_eval_f32_scratch.argtypes = [i] * 4
+    lib.dense_block_eval_f32_scratch.restype = ctypes.c_longlong
+    lib.tf32_split_f32.argtypes = [p, i, i, p, p]
+    lib.tf32_split_f32.restype = ctypes.c_int
     return lib
 
 

@@ -14,10 +14,13 @@ K3 ``fused_iou_prune`` (CUDA C++, ``csrc/iou_prune.cu``) replaces
 boxes, the pairwise IoU matrix and the GrooMeD-NMS prune matrix
 ``pruning(iou)`` kept strictly lower triangular, padding zeroed.
 
-K4 ``dense_block_eval`` (CUDA C++, ``csrc/dense_block.cu``) replaces
+K4 ``dense_block_eval`` (CUDA C++, ``csrc/dense_block.cu`` in bf16,
+``csrc/dense_block_f32.cu`` in f32) replaces
 ``groomed_nms_tpu/ops/pallas_dense_block.py::dense_block_eval``: one
 eval-mode DenseNet block with BatchNorm folded to (mul, add), for the
-``fast_eval`` engine (``models/fast_eval.py``).
+``fast_eval`` engine (``models/fast_eval.py``).  Its f32 form takes its
+products at f32 accuracy from three TF32 products, each operand split into
+TF32 halves; ``tf32_split`` is the prep kernel that splits the weights.
 
 ``group_leaders`` (CUDA C++, ``csrc/group_leaders.cu``) has no TPU kernel
 behind it: it computes GrooMeD-NMS's greedy grouping, which
@@ -31,7 +34,8 @@ CPU it runs the kernel's plain PyTorch version (``*_plain``, the oracle the
 CPU tests hold against the JAX kernels), on a CUDA device it launches the
 kernel, and on any other device it raises.  ``<wrapper>.launches`` counts the
 calls that launched the kernel (plain-version calls are not counted; one K4
-call is 2L CUDA launches, one per conv of each layer).  Triton is imported
+call is 2L CUDA launches, one per conv of each layer, after one
+``tf32_split`` launch in f32).  Triton is imported
 and the CUDA library built only when a kernel is first launched.
 
 The four kernels of the serving paths (K1, K2, K3 and the grouping) are
@@ -654,6 +658,58 @@ def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
     return stack.contiguous(memory_format=torch.channels_last)
 
 
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32`` in integer bit operations: the f32 ``x`` rounded
+    to TF32's 10 mantissa bits, to nearest with ties away from zero, as an
+    f32 whose low 13 bits are zero.  On the magnitude's bits, adding half
+    the dropped unit (``0x1000``) and clearing the 13 low bits rounds that
+    way; a carry into the exponent is the rounding up that it should be.
+    Finite inputs (the largest magnitudes round to infinity)."""
+    u = x.contiguous().view(torch.int32)
+    sign = u & torch.iinfo(torch.int32).min
+    mag = ((u & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (sign | mag).view(torch.float32)
+
+
+def tf32_split_plain(x):
+    """The prep kernel's function in PyTorch: f32 ``x`` -> (hi, lo) with
+    ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, each rounded as
+    ``cvt.rna.tf32.f32`` rounds (``_tf32_rna``); ``x - hi`` is exact in f32,
+    and ``|x - hi - lo| <= 2**-22 |x|`` plus TF32's smallest subnormal
+    (2**-136).  Bit for bit the kernel's on finite inputs."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_split takes f32, got {x.dtype}")
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def tf32_split(x):
+    """The prep kernel of K4's f32 form (``csrc/dense_block_f32.cu::
+    tf32_split``), alone: f32 ``x`` -> (hi, lo) as ``tf32_split_plain``,
+    each in ``x``'s shape.  ``dense_block_eval`` launches it inside its f32
+    entry (counted there); a call here counts once in
+    ``tf32_split.launches``."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_split takes f32, got {x.dtype}")
+    if _device_kind(x) == "cpu":
+        return tf32_split_plain(x)
+    n = x.shape[-1] if x.dim() else 1
+    xs = F.pad(x.reshape(x.numel() // n if n else 0, n),
+               (0, -n % 4)).contiguous()
+    out = torch.empty((xs.shape[0], 2, xs.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.dense_block_f32_lib().tf32_split_f32(
+            xs.data_ptr(), xs.shape[0], xs.shape[1], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _check_launch(err, "tf32_split")
+    tf32_split.launches += 1
+    return tuple(out[:, i, :n].reshape(x.shape) for i in range(2))
+
+
+tf32_split.launches = 0
+
+
 def dense_block_work(b, c0, h, w, layers, growth, bw, elem_bytes=2):
     """The least work of one dense block on the kernel: (FLOP, bytes).
 
@@ -714,11 +770,14 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
     with k = (ty*3 + tx)*bw + channel.
 
     On a CUDA tensor one call is 2L kernel launches (after a copy of ``x0``
-    into the stack) and counts once in ``dense_block_eval.launches``.  The
-    kernel takes bf16 (``csrc/dense_block.cu::dense_block_eval``) and f32
-    (``dense_block_eval_f32``: products at f32 accuracy, 3xTF32), c0 and G
-    multiples of 8, G <= 64 and bw a multiple of 32 up to 128; anything
-    else raises ``ValueError``.
+    into the stack; in f32 after one ``tf32_split`` launch that splits the
+    weights into scratch, 2 * (w1 + w2) elements when cmax is a multiple of
+    32) and counts once in ``dense_block_eval.launches``.  The kernel takes
+    bf16
+    (``csrc/dense_block.cu::dense_block_eval``) and f32
+    (``csrc/dense_block_f32.cu::dense_block_eval_f32``: products at f32
+    accuracy, 3xTF32), c0 and G multiples of 8, G <= 64 and bw a multiple
+    of 32 up to 128; anything else raises ``ValueError``.
     """
     layers, c0, cmax, bw, growth = _check_dense_block(
         x0, mul1, add1, w1, mul2, add2, w2, dilation)
@@ -726,25 +785,31 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
         return dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2,
                                       dilation=dilation)
 
-    # _check_dense_block took DENSE_BLOCK_DTYPES only
-    entry = "dense_block_eval" if x0.dtype == torch.bfloat16 else \
-        "dense_block_eval_f32"
     if c0 % 8 or growth % 8 or growth > 64 or bw % 32 or bw > 128:
         raise ValueError(f"the dense-block kernel takes c0 and G multiples of "
                          f"8, G <= 64, bw in (32, 64, 96, 128); got c0={c0}, "
                          f"G={growth}, bw={bw}")
     b, _, h, w = x0.shape
-    lib = _build.dense_block_lib()
     with torch.cuda.device(x0.device):
         stack = torch.empty((b, cmax, h, w), dtype=x0.dtype, device=x0.device,
                             memory_format=torch.channels_last)
         stack[:, :c0].copy_(x0)
         hbuf = torch.empty((b * h * w, bw), dtype=x0.dtype, device=x0.device)
-        err = getattr(lib, entry)(
-            stack.data_ptr(), hbuf.data_ptr(), mul1.data_ptr(),
-            add1.data_ptr(), w1.data_ptr(), mul2.data_ptr(), add2.data_ptr(),
-            w2.data_ptr(), b, h, w, c0, cmax, layers, bw, growth, dilation,
-            torch.cuda.current_stream().cuda_stream)
+        # _check_dense_block took DENSE_BLOCK_DTYPES only
+        if x0.dtype == torch.bfloat16:
+            fn, scratch = _build.dense_block_lib().dense_block_eval, ()
+        else:
+            lib = _build.dense_block_f32_lib()
+            fn = lib.dense_block_eval_f32
+            wsplit = torch.empty(
+                lib.dense_block_eval_f32_scratch(cmax, layers, bw, growth),
+                dtype=torch.float32, device=x0.device)
+            scratch = (wsplit.data_ptr(),)
+        err = fn(stack.data_ptr(), hbuf.data_ptr(), *scratch,
+                 mul1.data_ptr(), add1.data_ptr(), w1.data_ptr(),
+                 mul2.data_ptr(), add2.data_ptr(), w2.data_ptr(), b, h, w,
+                 c0, cmax, layers, bw, growth, dilation,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dense_block_eval kernel launch failed: CUDA "
                            f"error {err}")

@@ -5,11 +5,16 @@ one CUDA card, with each call split into its 1x1 and 3x3 kernels.
     python3 scripts/k4_compare.py [--other DIR ...] [--reps 20]
         [--dtype bf16|f32]
 
-Builds ``groomed_nms_torch/csrc/dense_block.cu`` of this checkout and, with
-``--other``, the same file of other checkouts (the parent commit unpacked by
-``git archive``, say), with the same nvcc flags.  At each of the flagship's
-two kernel blocks (``chip_smoke.K4_BLOCKS``), in ``--dtype`` (checkouts
-that predate K4's f32 entry take bf16 only), it checks each library against
+Builds K4's source of this checkout and, with ``--other``, the same file of
+other checkouts (the parent commit unpacked by ``git archive``, say), with
+the same nvcc flags: ``groomed_nms_torch/csrc/dense_block.cu`` for bf16;
+for f32 ``csrc/dense_block_f32.cu`` where the checkout has it (the entry
+that takes a scratch for the weights' TF32 halves) and ``dense_block.cu``'s
+``dense_block_eval_f32`` where it does not (the earlier design; checkouts
+that predate K4's f32 entry take bf16 only).  At each of the flagship's two
+kernel blocks (``chip_smoke.K4_BLOCKS``; in f32 also DenseNet-121's
+blocks 3-4, ``chip_smoke.K4_MORE_BLOCKS``), in ``--dtype``, it checks
+each library against
 ``dense_block_eval_plain`` with chip_smoke.py's rule
 (``chip_smoke.k4_agrees``), times them in
 the order others, this, this, others reversed (median device ms of
@@ -34,32 +39,46 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (K4_BLOCKS, K4_DTYPES, PEAK_BF16,  # noqa: E402
-                        PEAK_F32_PRODUCTS, bound, card_line,
+from chip_smoke import (K4_BLOCKS, K4_DTYPES, K4_MORE_BLOCKS,  # noqa: E402
+                        PEAK_BF16, PEAK_F32_PRODUCTS, bound, card_line,
                         dense_block_case, k4_agrees, split_ms, time_ms)
 from groomed_nms_torch.ops import _build, kernels  # noqa: E402
 
-SOURCE = Path("groomed_nms_torch/csrc/dense_block.cu")
-KERNEL_NAMES = ("conv1x1_bn_relu", "conv3x3")
+CSRC = Path("groomed_nms_torch/csrc")
+KERNEL_NAMES = ("tf32_split", "conv1x1_bn_relu", "conv3x3")
 
 
-ENTRIES = {torch.bfloat16: "dense_block_eval",
-           torch.float32: "dense_block_eval_f32"}
+def source(checkout, dtype):
+    """K4's source for ``dtype`` in ``checkout``, and whether its entry takes
+    the weights' split scratch (the f32 design with a prep kernel)."""
+    f32 = checkout / CSRC / "dense_block_f32.cu"
+    if dtype == torch.float32 and f32.exists():
+        return f32, True
+    return checkout / CSRC / "dense_block.cu", False
 
 
-def load(path, dtype):
-    """The library at ``path`` with its C entry for ``dtype`` declared."""
+def load(path, dtype, scratch):
+    """The library at ``path``: its C entry for ``dtype``, declared, and
+    for an entry that takes the split scratch its size in floats as a
+    function of (cmax, L, bw, G), else None."""
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, ENTRIES[dtype])
-    fn.argtypes = [p] * 8 + [i] * 9 + [p]
+    fn = lib.dense_block_eval if dtype == torch.bfloat16 else \
+        lib.dense_block_eval_f32
+    fn.argtypes = [p] * (9 if scratch else 8) + [i] * 9 + [p]
     fn.restype = ctypes.c_int
-    return lib
+    if not scratch:
+        return fn, None
+    size = lib.dense_block_eval_f32_scratch
+    size.argtypes, size.restype = [i] * 4, ctypes.c_longlong
+    return fn, size
 
 
-def run(lib, x0, mul1, add1, w1, mul2, add2, w2, dilation):
-    """``kernels.dense_block_eval``'s CUDA path on the library ``lib``, in
-    ``x0``'s dtype."""
+def run(entry, x0, mul1, add1, w1, mul2, add2, w2, dilation):
+    """``kernels.dense_block_eval``'s CUDA path on the C entry ``entry`` (a
+    function, and the size of its split scratch or None), in ``x0``'s
+    dtype."""
+    fn, scratch = entry
     layers, bw, cmax = w1.shape
     growth = w2.shape[1]
     b, c0, h, w = x0.shape
@@ -67,11 +86,15 @@ def run(lib, x0, mul1, add1, w1, mul2, add2, w2, dilation):
                         memory_format=torch.channels_last)
     stack[:, :c0].copy_(x0)
     hbuf = torch.empty((b * h * w, bw), dtype=x0.dtype, device=x0.device)
-    err = getattr(lib, ENTRIES[x0.dtype])(
-        stack.data_ptr(), hbuf.data_ptr(), mul1.data_ptr(), add1.data_ptr(),
-        w1.data_ptr(), mul2.data_ptr(), add2.data_ptr(), w2.data_ptr(), b, h,
-        w, c0, cmax, layers, bw, growth, dilation,
-        torch.cuda.current_stream().cuda_stream)
+    extra = ()
+    if scratch:
+        wsplit = torch.empty(scratch(cmax, layers, bw, growth),
+                             dtype=torch.float32, device=x0.device)
+        extra = (wsplit.data_ptr(),)
+    err = fn(stack.data_ptr(), hbuf.data_ptr(), *extra, mul1.data_ptr(),
+             add1.data_ptr(), w1.data_ptr(), mul2.data_ptr(),
+             add2.data_ptr(), w2.data_ptr(), b, h, w, c0, cmax, layers, bw,
+             growth, dilation, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dense_block_eval failed: CUDA error {err}")
     return stack
@@ -91,16 +114,21 @@ def main():
     stamp = f"[{card_line()}]"
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     others = [d.resolve().name for d in opts.other]
-    sources = [ROOT / SOURCE] + [d.resolve() / SOURCE for d in opts.other]
+    sources = [source(d, dtype) for d in [ROOT] + [d.resolve()
+                                                   for d in opts.other]]
     with ThreadPoolExecutor(len(sources)) as pool:       # one nvcc each
-        paths = list(pool.map(lambda src: _build.build(str(src)), sources))
-    libs = {name: load(path, dtype)
-            for name, path in zip(["this"] + others, paths)}
+        paths = list(pool.map(lambda src: _build.build(str(src[0])),
+                              sources))
+    libs = {name: load(path, dtype, scratch)
+            for name, path, (_, scratch) in zip(["this"] + others, paths,
+                                                sources)}
     order = others + ["this", "this"] + others[::-1]
     wrong = set()
     torch.backends.cudnn.allow_tf32 = False       # the plain version in f32
     results = {}
-    for i, (block, shape) in enumerate(K4_BLOCKS.items()):
+    blocks = {**K4_BLOCKS,
+              **(K4_MORE_BLOCKS if dtype == torch.float32 else {})}
+    for i, (block, shape) in enumerate(blocks.items()):
         *dims, dil = shape
         args = dense_block_case(np.random.default_rng(10 + i), *dims, dev,
                                 dtype)
@@ -124,7 +152,8 @@ def main():
                                        opts.reps, flush))
         for name, lib in libs.items():
             split = split_ms(lambda: run(lib, *args, dil), KERNEL_NAMES,
-                             dict.fromkeys(KERNEL_NAMES, dims[4]))
+                             {"tf32_split": 1, "conv1x1_bn_relu": dims[4],
+                              "conv3x3": dims[4]})
             ms = float(np.median(times[name]))
             results[f"{block} {opts.dtype} {name}"] = dict(
                 ms=times[name], split=split, bound_ms=bound_ms,

@@ -244,6 +244,72 @@ def test_dense_block_kernel_matches_plain(cuda, b, c0, h, w, layers, growth,
     assert err.mean() <= mean_rel * ref.abs().mean()
 
 
+@pytest.mark.parametrize("b,c0,h,w,layers,growth,bw,dil", [
+    # the f32 form's tiles: (a) 128 pixels by 32 channels a step, (b) 16 x 16
+    # output pixels by 8 channels, one wgmma m64nGk8 a product.  Pixels not
+    # a multiple of 128 and cin not a multiple of 32 (c0 8, 24, 40, 56); G
+    # at each wgmma N from 8 to 64; bw 32, 64, 96 and 128; dilation 2 and 3
+    # on images a few pixels past one halo
+    (1, 8, 7, 9, 3, 8, 32, 1),
+    (2, 24, 11, 13, 2, 24, 64, 1),
+    (1, 40, 38, 35, 2, 40, 96, 2),
+    (1, 56, 37, 38, 2, 56, 32, 2),
+    (1, 16, 52, 55, 2, 64, 96, 3),
+    (2, 8, 20, 18, 2, 16, 128, 1),
+    (1, 24, 18, 53, 3, 48, 64, 3),
+])
+def test_dense_block_f32_kernel_at_its_tiles_edges(cuda, b, c0, h, w,
+                                                   layers, growth, bw, dil):
+    """f32 at the edges of its own tiling, against the plain version with
+    TF32 off: max |err| and mean |err| within 1e-5 of max |ref| and mean
+    |ref|, as test_dense_block_kernel_matches_plain holds f32."""
+    args = _dense_block_case(h * w + 1, b, c0, h, w, layers, growth, bw,
+                             cuda, torch.float32)
+    got = kernels.dense_block_eval(*args, dilation=dil)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = kernels.dense_block_eval_plain(*args, dilation=dil)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :c0], args[0])
+    new, ref = got[:, c0:], ref[:, c0:]
+    err = (new - ref).abs()
+    assert err.max() <= 1e-5 * ref.abs().max()
+    assert err.mean() <= 1e-5 * ref.abs().mean()
+
+
+# bit patterns at the TF32 rounding's edges: ties at bit 12 (from an odd
+# and an even kept bit), just below and above, negatives, a carry into the
+# exponent, +-0, subnormals and their carry into the smallest normal
+TF32_PATTERNS = (0x3F800000, 0x3F801000, 0x3F805000, 0x3F800FFF, 0x3F801001,
+                 0xBF801000, 0xBF805000, 0xBF800FFF, 0x3FFFF000, 0xBFFFF000,
+                 0x00000000, 0x80000000, 0x00000001, 0x00000FFF, 0x00001000,
+                 0x80001000, 0x007FF000, 0x807FF000, 0x00800000, 0x7F7FE000,
+                 0x7F7FEFFF)
+
+
+def test_tf32_split_kernel_is_bit_identical_to_plain(cuda):
+    """The prep kernel against kernels.tf32_split_plain, bit for bit: on the
+    crafted patterns and on a seeded [12, 128, 512] tensor over exponents
+    from 2^-140 to 2^100."""
+    rs = np.random.default_rng(18)
+    seeded = (rs.standard_normal((12, 128, 512)) *
+              2.0 ** rs.integers(-140, 100, (12, 128, 512))).astype(
+                  np.float32)
+    crafted = np.array(TF32_PATTERNS, np.uint32).view(np.float32)
+    for x in (torch.from_numpy(crafted), torch.from_numpy(seeded)):
+        x = x.to(cuda)
+        before = kernels.tf32_split.launches
+        hi, lo = kernels.tf32_split(x)
+        assert kernels.tf32_split.launches == before + 1
+        want_hi, want_lo = kernels.tf32_split_plain(x)
+        torch.cuda.synchronize()
+        assert torch.equal(hi.view(torch.int32), want_hi.view(torch.int32))
+        assert torch.equal(lo.view(torch.int32), want_lo.view(torch.int32))
+
+
 def test_dense_block_kernel_refuses_what_it_does_not_take(cuda):
     args = _dense_block_case(0, 1, 16, 8, 8, 2, 8, 32, cuda)
     with pytest.raises(ValueError):           # f16 is never handed on
