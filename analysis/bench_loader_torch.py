@@ -86,7 +86,6 @@ def main(argv=None):
                     load_image_cached(rec.image_path, rec.id, cache_dir)
             for _ in range(args.warmup):
                 next(loader)
-            loader.pop_wait_stats()
             t0 = time.perf_counter()
             for _ in range(args.iters):
                 b = next(loader)

@@ -25,7 +25,6 @@ import logging
 import os
 import queue
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch
 from ..anchors import (compute_targets, generate_anchor_templates,
                        learn_anchor_priors, locate_anchors)
 from ..parallel.dist import local_rows
+from ..utils.spans import span
 from .augment import mirror_labels, scale_labels
 from .imdb import balance_samples, class_indices, determine_ignores, \
     pad_gt_batch
@@ -341,8 +341,7 @@ class TrainLoader:
     must divide by the world): every rank makes every draw of the global
     batch in the same order, so the ranks' streams stay in step, and
     decodes and labels only its own rows.  An exception in the worker is raised by ``next()``;
-    ``close()`` stops the worker; ``pop_wait_stats()`` gives the time the
-    consumer waited since the last call.
+    ``close()`` stops the worker.
     """
 
     def __init__(self, imdb, cfg, seed=0, prefetch=4, decode_workers=8,
@@ -354,8 +353,6 @@ class TrainLoader:
         self._cache_dir = raw_cache_dir
         if raw_cache_dir:
             os.makedirs(raw_cache_dir, exist_ok=True)
-        self._wait_s = 0.0
-        self._wait_n = 0
         # a fixed bbox_3d width keeps the batch shapes static
         self._n3d_cols = 17 if getattr(cfg, "has_vel", False) else None
         self.rng = np.random.default_rng(seed)
@@ -462,18 +459,8 @@ class TrainLoader:
         self._thread.join(timeout=5)
         self._pool.shutdown(wait=False)
 
-    def pop_wait_stats(self):
-        """(seconds ``next()`` waited for a batch, batches taken) since the
-        last call."""
-        out = (self._wait_s, self._wait_n)
-        self._wait_s, self._wait_n = 0.0, 0
-        return out
-
     def __next__(self):
-        t0 = time.perf_counter()
         kind, item = self._q.get()
-        self._wait_s += time.perf_counter() - t0
-        self._wait_n += 1
         if kind == "error":
             raise RuntimeError("TrainLoader worker failed") from item
         return item
@@ -630,7 +617,8 @@ def device_prefetch(host_iter, device, depth=2):
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("prefetch.wait"):
+                item = q.get()
             if item is stop:
                 return
             if isinstance(item, BaseException):

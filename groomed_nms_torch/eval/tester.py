@@ -43,6 +43,7 @@ from ..data.augment import (pad_image_edge, preprocess_images,
                             preprocess_images_dynamic)
 from ..inference import (clip_detections, im_detect_3d, refine_detections,
                          rpn_outputs_dict, write_kitti_detections)
+from ..utils.spans import span
 
 MAX_IN_FLIGHT = 3                 # batches queued before the oldest is written
 DECODE_THREADS = 8
@@ -61,26 +62,32 @@ def make_infer(model, dcfg, target_h, crop_w, compute_dtype=None):
     ``compute_dtype`` torch.bfloat16 runs the preprocess output and the
     model under bf16 autocast (BatchNorm statistics and the head's f32
     splits stay f32); None runs in f32.  The model is put in eval mode.
+    A call is the program's span ``infer`` (``utils/spans.py``), over
+    ``preprocess``, the model's spans and ``detect``'s.
     """
     model.eval()
 
     @torch.inference_mode()
     def infer(images_u8, means_img, stds_img, rois, rois_3d, p2, p2_inv,
               scale, bbox_means, bbox_stds, src_hw=None):
-        if src_hw is None:
-            images = preprocess_images(images_u8, None, means_img, stds_img,
-                                       target_h=target_h, crop_w=crop_w,
-                                       out_dtype=compute_dtype)
-        else:
-            images = preprocess_images_dynamic(
-                images_u8, src_hw, means_img, stds_img, target_h=target_h,
-                crop_w=crop_w, out_dtype=compute_dtype)
-        amp = (torch.autocast(images.device.type, dtype=compute_dtype)
-               if compute_dtype is not None else contextlib.nullcontext())
-        with amp:
-            out = model(images)
-        return im_detect_3d(rpn_outputs_dict(out), rois, rois_3d, p2, p2_inv,
-                            scale, bbox_means, bbox_stds, dcfg)
+        with span("infer"):
+            with span("preprocess"):
+                if src_hw is None:
+                    images = preprocess_images(
+                        images_u8, None, means_img, stds_img,
+                        target_h=target_h, crop_w=crop_w,
+                        out_dtype=compute_dtype)
+                else:
+                    images = preprocess_images_dynamic(
+                        images_u8, src_hw, means_img, stds_img,
+                        target_h=target_h, crop_w=crop_w,
+                        out_dtype=compute_dtype)
+            amp = (torch.autocast(images.device.type, dtype=compute_dtype)
+                   if compute_dtype is not None else contextlib.nullcontext())
+            with amp:
+                out = model(images)
+            return im_detect_3d(rpn_outputs_dict(out), rois, rois_3d, p2,
+                                p2_inv, scale, bbox_means, bbox_stds, dcfg)
 
     return infer
 

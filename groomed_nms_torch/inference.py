@@ -32,6 +32,7 @@ from .ops.geometry import (alpha_to_rot_y, backproject_2d_points,
 from .ops.groomed_nms import _rows, groomed_nms_boxes
 from .ops.kernels import fused_head_scores, greedy_nms
 from .ops.refine import hill_climb
+from .utils.spans import span
 
 
 @dataclass(frozen=True)
@@ -242,11 +243,16 @@ def im_detect_3d(outputs, rois, rois_3d, p2, p2_inv, scale_factor,
     The same rows as decode_detections + nms_and_topk over every anchor,
     with the decode done on the pre-NMS top-k only.
     """
-    sel, sel_rois, sel_rois_3d = select_top_pre_nms(outputs, rois, rois_3d,
-                                                    cfg)
-    dets, scores = decode_detections(sel, sel_rois, sel_rois_3d, p2, p2_inv,
-                                     scale_factor, bbox_means, bbox_stds, cfg)
-    return nms_and_topk(dets, scores, cfg, presorted=True)
+    with span("detect"):
+        with span("detect.select"):
+            sel, sel_rois, sel_rois_3d = select_top_pre_nms(
+                outputs, rois, rois_3d, cfg)
+        with span("detect.decode"):
+            dets, scores = decode_detections(
+                sel, sel_rois, sel_rois_3d, p2, p2_inv, scale_factor,
+                bbox_means, bbox_stds, cfg)
+        with span("detect.nms"):
+            return nms_and_topk(dets, scores, cfg, presorted=True)
 
 
 def rpn_outputs_dict(out):

@@ -27,6 +27,8 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.spans import span
+
 
 @dataclass(frozen=True)
 class DenseNetConfig:
@@ -260,13 +262,22 @@ class DenseNetBackbone(nn.Module):
                 features //= 2
             self.blocks.append((names, trans))
         self.norm5 = _bn(features, cfg)
+        # the program's span of each stage (utils/spans.py), named once here
+        self.stage_spans = [(f"trunk.block{bi + 1}",
+                             trans and "trunk." + trans)
+                            for bi, (_, trans) in enumerate(self.blocks)]
 
     def forward(self, x):
-        x = F.relu(self.norm0(self.conv0(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
-        for names, trans in self.blocks:
-            for name in names:
-                x = torch.cat([x, getattr(self, name)(x)], dim=1)
+        with span("trunk.stem"):
+            x = F.relu(self.norm0(self.conv0(x)))
+            x = F.max_pool2d(x, 3, 2, padding=1)
+        for (names, trans), (block_span, trans_span) in zip(
+                self.blocks, self.stage_spans):
+            with span(block_span):
+                for name in names:
+                    x = torch.cat([x, getattr(self, name)(x)], dim=1)
             if trans is not None:
-                x = getattr(self, trans)(x)
-        return self.norm5(x)
+                with span(trans_span):
+                    x = getattr(self, trans)(x)
+        with span("trunk.norm5"):
+            return self.norm5(x)

@@ -234,6 +234,7 @@ class FastEvalRPN3D(nn.Module):
     """
 
     forward = RPN3D.forward
+    _head = RPN3D._head
 
     def __init__(self, model: RPN3D, dtype=torch.bfloat16,
                  kernel_blocks=KERNEL_BLOCKS):

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..utils.spans import span
 from .densenet import DenseNetBackbone, DenseNetConfig
 
 N_BOX2D = 4
@@ -139,8 +140,15 @@ class RPN3D(nn.Module):
         """images [B, 3, H, W] (normalised) -> RPNOutputs, and with
         ``return_base`` the trunk's features too (the video model's pose
         branch reads them)."""
+        with span("model"):
+            feats = self.backbone(images)
+            with span("head"):
+                out = self._head(feats)
+        return (out, feats) if return_base else out
+
+    def _head(self, feats):
+        """``prop_feats``, the fused head and the acceptance branch."""
         cfg = self.config
-        feats = self.backbone(images)
         h = F.relu(self.prop_feats(feats))
         fh, fw = h.shape[2], h.shape[3]
         out = RPNOutputs(fused_raw=_to_rows(self.head(h), cfg.per_anchor),
@@ -155,4 +163,4 @@ class RPN3D(nn.Module):
                 out.accept_cls = torch.sigmoid(ap)
             else:
                 out.accept_prob = torch.sigmoid(ap[..., 0])
-        return (out, feats) if return_base else out
+        return out

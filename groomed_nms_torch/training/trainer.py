@@ -47,6 +47,7 @@ from ..data.augment import (PhotometricDraws, photometric_draws,
 from ..losses.rpn_3d import (GTBatch, LossConfig, UncertaintyState,
                              accept_head_trained, rpn_3d_loss)
 from ..parallel.dist import local_rows
+from ..utils.spans import span
 
 SOLVERS = ("sgd", "adam", "adamax")
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -234,7 +235,9 @@ def make_train_step(loss_cfg: LossConfig, rois, rois_3d, bbox_means,
     autocast.  The step updates ``state`` in place and returns the loss's
     stats dict of 0-dim tensors (nothing is read back to the host).
     ``on_stage``, when given, is called with "forward", "loss", "backward"
-    and "optimizer" as each stage has been issued (a timer's hook).
+    and "optimizer" as each stage has been issued (a timer's hook).  A step
+    is the program's span ``step`` (``utils/spans.py``), over the model's
+    spans, ``loss``, ``backward`` and ``optimizer``.
 
     Freezing (``training/freeze.py``): ``train_bn=False`` runs the model in
     eval mode, BatchNorm normalising by its running statistics and leaving
@@ -298,6 +301,10 @@ def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
     world = dist.world if dist is not None and dist.active else 1
 
     def train_step(state: TrainState, batch):
+        with span("step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         model = state.model
         model.train(train_bn)
         images = batch["images"]
@@ -315,20 +322,23 @@ def _make_step(loss_cfg, rois, rois_3d, bbox_means, bbox_stds, compute_dtype,
                 torch._foreach_copy_(pinned, saved)
         mark("forward")
         gt = GTBatch(*(batch[name] for name in GTBatch._fields))
-        loss, stats, state.un_state = rpn_3d_loss(
-            extract(out, batch), rois, rois_3d, gt, bbox_means, bbox_stds,
-            state.un_state, loss_cfg, dist=dist)
+        with span("loss"):
+            loss, stats, state.un_state = rpn_3d_loss(
+                extract(out, batch), rois, rois_3d, gt, bbox_means,
+                bbox_stds, state.un_state, loss_cfg, dist=dist)
         mark("loss")
-        state.optimizer.zero_grad()
-        (loss * world if world > 1 else loss).backward()
-        for name, p in getattr(state.ddp, "ignored_params", {}).items():
-            if p.grad is not None:
-                raise RuntimeError(
-                    f"{name} is in DDP's ignore list (unused_parameters) "
-                    "but the loss reached it: its gradient would not be "
-                    "reduced over the ranks")
+        with span("backward"):
+            state.optimizer.zero_grad()
+            (loss * world if world > 1 else loss).backward()
+            for name, p in getattr(state.ddp, "ignored_params", {}).items():
+                if p.grad is not None:
+                    raise RuntimeError(
+                        f"{name} is in DDP's ignore list (unused_parameters) "
+                        "but the loss reached it: its gradient would not be "
+                        "reduced over the ranks")
         mark("backward")
-        state.optimizer.step()
+        with span("optimizer"):
+            state.optimizer.step()
         mark("optimizer")
         state.step += 1
         return {k: v.detach() for k, v in stats.items()}
@@ -372,10 +382,17 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
     With ``dist`` the frames are this rank's rows of the global batch: the
     jitter is drawn for the global batch and the rank takes its rows
     (``local_rows``), so each frame gets the draw one process gives it.
+    The preprocess is the program's span ``preprocess`` (``utils/spans.py``).
     """
     world = dist.world if dist is not None and dist.active else 1
 
     def fused(state, raw):
+        with span("preprocess"):
+            images = _images(state, raw)
+        gt = {k: v for k, v in raw.items() if k not in ("images_u8", "mirror")}
+        return step_fn(state, dict(images=images, **gt))
+
+    def _images(state, raw):
         u8, mirror = raw["images_u8"], raw["mirror"]
         if video:
             b, f = u8.shape[:2]
@@ -400,7 +417,6 @@ def fuse_preprocess(step_fn, image_means, image_stds, *, target_h, crop_w,
             images = preprocess_images(u8, mirror, image_means, image_stds,
                                        target_h=target_h, crop_w=crop_w,
                                        out_dtype=out_dtype)
-        gt = {k: v for k, v in raw.items() if k not in ("images_u8", "mirror")}
-        return step_fn(state, dict(images=images, **gt))
+        return images
 
     return fused

@@ -105,7 +105,13 @@ def trace_counts(path):
 
 
 def trace_kernel_ms(path):
-    """The summed duration (ms) of the device kernels in a Chrome trace
-    JSON written by ``torch.profiler``: the device's busy time, kernels
-    that overlap counted each."""
-    return sum(float(e.get("dur", 0.0)) for e in _kernel_events(path)) / 1e3
+    """The device's busy time (ms) in a Chrome trace JSON written by
+    ``torch.profiler``: the length of the union of its kernels' intervals,
+    so kernels that overlap (on other streams) count once."""
+    ivs = sorted((float(k["ts"]), float(k["ts"]) + float(k.get("dur", 0.0)))
+                 for k in _kernel_events(path))
+    busy, end = 0.0, float("-inf")
+    for s, e in ivs:
+        busy += max(e - max(s, end), 0.0)
+        end = max(end, e)
+    return busy / 1e3

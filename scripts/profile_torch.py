@@ -17,15 +17,18 @@ lighter graph than production that skips the NMS loss terms.  ``--remat``
 sets the train step's ``backbone_remat``.
 
 After one warm-up call, ``--iters`` calls run under ``torch.profiler`` (CPU
-and CUDA activities), the window closed by ``torch.cuda.synchronize()``; the
-Chrome trace JSON is written into ``--out`` (the counterpart of the XPlane
-trace, loadable in Perfetto or chrome://tracing).  Printed: the card's name
-and power limit, the top kernels by total device time (ops by CPU time on
-the CPU), the window's host ms a call beside the device kernels' summed ms
-a call (their ratio the device's busy share, the rest idle; the profiler's
-own cost is in both), each kernel's launches a call from the wrappers'
-counters and its device kernels in the trace.  ``--crop`` and ``--src``
-shrink the workload (the CPU tests run it at 64x128).
+and CUDA activities), the window closed by ``torch.cuda.synchronize()``, with
+the program's spans on (``groomed_nms_torch/utils/spans.py``: ``gnms.infer``,
+``gnms.step``, the trunk's stages, the loss's, ...); the Chrome trace JSON is
+written into ``--out`` (the counterpart of the XPlane trace, loadable in
+Perfetto or chrome://tracing, where the spans show the stages).  Printed:
+the card's name and power limit, the top kernels by total device time (ops
+by CPU time on the CPU), the window's host ms a call beside the device's
+busy ms a call (the union of the kernels' intervals; their ratio the
+device's busy share, the rest idle; the profiler's own cost is in both),
+each kernel's launches a call from the wrappers' counters and its device
+kernels in the trace.  ``--crop`` and ``--src`` shrink the workload (the
+CPU tests run it at 64x128).
 """
 
 import argparse
@@ -84,7 +87,7 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from groomed_nms_torch.utils import measure
+    from groomed_nms_torch.utils import measure, spans
 
     device = measure.tool_device(args.device)
     print(measure.header(device), flush=True)
@@ -98,12 +101,16 @@ def main(argv=None):
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     measure.reset_launches()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            run()
-        measure.sync(device)
-        wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
+    spans.enable(True)
+    try:
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                run()
+            measure.sync(device)
+            wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
+    finally:
+        spans.enable(False)
     per_call = {k: v / args.iters for k, v in measure.launches().items()}
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"{args.mode}_trace.json")
@@ -116,7 +123,7 @@ def main(argv=None):
     print(f"{args.mode}, batch {args.batch}, {args.crop[0]}x{args.crop[1]}"
           f"{', remat ' + args.remat if args.remat != 'none' else ''}, "
           f"{args.iters} calls: {wall_ms:.2f} ms a call on the host, "
-          f"{device_ms:.2f} ms of device kernels a call; kernel launches a "
+          f"{device_ms:.2f} ms of device busy time a call; kernel launches a "
           f"call "
           + ", ".join(f"{k} {v:g}" for k, v in per_call.items())
           + "; device kernels in the trace "

@@ -312,8 +312,6 @@ def test_train_loader_cache_errors_and_close(tree, tmp_path):
     loader.close()
 
     loader = pipeline.TrainLoader(ours, cfg, seed=0, prefetch=1)
-    next(loader)
-    waited, n = loader.pop_wait_stats()
-    assert n == 1 and waited >= 0 and loader.pop_wait_stats() == (0.0, 0)
+    assert "images_u8" in next(loader)
     loader.close()
     assert not loader._thread.is_alive()
