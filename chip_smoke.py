@@ -53,7 +53,8 @@ Phases, in order; any failure raises and exits non-zero:
                 2x64x128, TF32 off; (e) the f32 flagship (compute_dtype
                 None, as the shipped configs) through make_infer, fast_eval
                 beside rpn3d at each cuDNN TF32 setting, timed: K4 twice
-                per batch in fast_eval, K1 and K2 once;
+                per batch in fast_eval and on all four dense blocks in
+                rpn3d (its eval trunk in f32), K1 and K2 once;
   8. K3     -- fused_iou_prune against its plain version at the training
                 and test-time shape [8, 512, 4] (clustered boxes, padding
                 rows) for the three pruning methods, at the analysis shape
@@ -238,8 +239,9 @@ Phases, in order; any failure raises and exits non-zero:
                 f32, TF32 off, batch 8), two ranks (torchrun, gloo, run
                 beside (a) and (b) on a copy of phase 12's run directory)
                 against one: rows equal by phase 12's
-                rule, K1 and K2 once a batch a rank; K4 (fast_eval only)
-                counted on every run of (c) and (d) and held at 0; each
+                rule, K1 and K2 once a batch a rank; K4 counted on every
+                run of (c) and (d): 0 in training, once a dense block of
+                each batch a rank in the f32 evaluation; each
                 torchrun's time split (start, imports, main(), the
                 profiler's digest, exit) printed;
  19. remat and tools -- (a) build_flagship_train at batch 8, 512x1760,
@@ -324,6 +326,8 @@ K4_BLOCKS = {"block1": (8, 64, 128, 440, 6, 32, 128, 1),
 K4_MORE_BLOCKS = {"block3": (8, 256, 32, 110, 24, 32, 128, 1),
                   "block4": (8, 512, 32, 110, 16, 32, 128, 2)}
 K4_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# DenseNet-121's dense blocks: K4 calls a batch of RPN3D in f32 eval
+TRUNK_BLOCKS = 4
 # f32 K4's kernels, split by name in phase 6: the prep kernel (once a call)
 # and the 1x1 and 3x3 (L each)
 K4_F32_KERNELS = ("tf32_split", "conv1x1_bn_relu", "conv3x3")
@@ -669,7 +673,8 @@ def fast_eval_f32_phase(dev, stamp):
             infer, args, _ = build_flagship(device="cuda", engine=engine,
                                             compute_dtype=None)
             want = {"fused_head_scores": 1, "greedy_nms": 1,
-                    "dense_block_eval": 2 if engine == "fast_eval" else 0}
+                    "dense_block_eval": 2 if engine == "fast_eval"
+                    else TRUNK_BLOCKS}
             rate, got, _ = serve_rate(infer, args, want)
             rates[engine] = rate
             if engine == "fast_eval" and cudnn_tf32:
@@ -680,7 +685,8 @@ def fast_eval_f32_phase(dev, stamp):
               f"512x1760, cudnn.allow_tf32={cudnn_tf32} (matmul TF32 off; "
               f"K4 f32-accurate either way): fast_eval "
               f"{rates['fast_eval']:.2f} img/s (K4 twice, K1 and K2 once a "
-              f"batch), rpn3d {rates['rpn3d']:.2f} img/s {stamp}",
+              f"batch), rpn3d {rates['rpn3d']:.2f} img/s (K4 {TRUNK_BLOCKS} "
+              f"times) {stamp}",
               flush=True)
     (torch.backends.cudnn.allow_tf32,
      torch.backends.cuda.matmul.allow_tf32) = tf32
@@ -3582,8 +3588,10 @@ def parallel_phase(dev, stamp):
     for r, w in zip(ev_ranks, want):
         assert r["launches"]["fused_head_scores"] == w, (r, w)
         assert r["launches"]["greedy_nms"] == w, (r, w)
-        assert r["launches"]["dense_block_eval"] == 0, r  # no fast_eval
-    assert le1["dense_block_eval"] == 0, le1
+        # the f32 eval trunk: K4 once a dense block of each batch
+        assert r["launches"]["dense_block_eval"] == TRUNK_BLOCKS * w, (r, w)
+    assert le1["dense_block_eval"] == \
+        TRUNK_BLOCKS * le1["fused_head_scores"] > 0, le1
     print(f"parallel: phase 18 in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"train_rank_launches_per_step": {
@@ -3593,7 +3601,7 @@ def parallel_phase(dev, stamp):
                 {n: r["launches"][n] for n in ("fused_head_scores",
                                                "greedy_nms")}
                 for r in ev_ranks],
-            # K4 (fast_eval only): measured on every phase-18 run
+            # K4: measured on every phase-18 run
             "dense_block_eval": {
                 "one_rank_train_launches": l1["dense_block_eval"],
                 "train_launches_by_rank": [

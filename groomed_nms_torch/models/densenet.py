@@ -14,6 +14,11 @@ and, in train mode, updates them as flax does (``FlaxBatchNorm2d``).
 ``remat_layers`` / ``remat_epilogue`` recompute whole dense layers, or only
 their BN2 -> ReLU -> conv2 tail, in the backward pass of a training step
 (``torch.utils.checkpoint``), as flax's ``nn.remat`` does in the JAX trunk.
+
+In eval-mode inference in f32 on a CUDA card each dense block runs as one
+call of K4's f32 form (``ops/kernels.py::dense_block_eval``) on its
+BatchNorms folded and its weights packed once (``_block_pack``), in place
+of the concat chain; ``DenseNetBackbone.forward`` says when.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.kernels import (dense_block_eval, dense_block_takes,
+                           pack_dense_block)
 from ..utils.spans import span
 
 
@@ -230,12 +237,28 @@ class Transition(nn.Module):
         return self.conv(h)
 
 
+def _kernel_device(x):
+    """Whether K4's hand-written form runs on ``x``'s device (a CUDA card;
+    on the CPU ``dense_block_eval`` is its plain version, the chain's work
+    in another order)."""
+    return x.is_cuda
+
+
 class DenseNetBackbone(nn.Module):
     """stem -> 4 dense blocks with transitions -> final BN (no ReLU).
 
     The output is the raw ``norm5`` activation, as torchvision's ``features``
     gives it to the RPN's ``prop_feats`` conv.
+
+    A dense block runs as one K4 call (``dense_block_eval``) when the
+    backbone is in eval mode, gradients are off, the block's input is f32 on
+    a CUDA device with autocast off there, no ``torch.compile`` or
+    ``torch.export`` trace is running (K4 is no custom op) and K4 takes the
+    block's shape (``dense_block_takes``); otherwise as the concat chain.
+    ``DenseNetBackbone.packs`` counts the packs built, over every backbone.
     """
+
+    packs = 0
 
     def __init__(self, cfg: DenseNetConfig = DenseNetConfig()):
         super().__init__()
@@ -244,8 +267,11 @@ class DenseNetBackbone(nn.Module):
                                bias=False)
         self.norm0 = _bn(cfg.stem_features, cfg)
         self.blocks = []               # (layer names, transition name or None)
+        self.block_inputs = []         # c0 of each block
+        self._packs = {}               # block index -> (key, K4's weights)
         features = cfg.stem_features
         for bi, num_layers in enumerate(cfg.block_layers):
+            self.block_inputs.append(features)
             names = []
             for li in range(num_layers):
                 name = f"denseblock{bi + 1}_layer{li + 1}"
@@ -267,15 +293,59 @@ class DenseNetBackbone(nn.Module):
                              trans and "trunk." + trans)
                             for bi, (_, trans) in enumerate(self.blocks)]
 
+    def _on_kernel(self, x, bi):
+        """Whether block ``bi`` runs on K4 for the input ``x``."""
+        cfg = self.config
+        return (not self.training and not torch.is_grad_enabled()
+                and _kernel_device(x) and x.dtype == torch.float32
+                and not torch.is_autocast_enabled(x.device.type)
+                and not torch.compiler.is_compiling()
+                and dense_block_takes(self.block_inputs[bi], cfg.growth_rate,
+                                      cfg.bn_size * cfg.growth_rate))
+
+    def _block_pack(self, bi, x):
+        """Block ``bi``'s BatchNorms folded and weights packed for K4 in
+        ``x``'s dtype on its device, kept until a parameter or statistic of
+        the block is changed in place or replaced (``load_state_dict``, an
+        optimizer step, a train-mode forward), or the module is moved or
+        cast (``_apply``)."""
+        layers = [getattr(self, n) for n in self.blocks[bi][0]]
+        try:
+            # each tensor's storage and in-place version: a change of either
+            # may change its values
+            key = (x.device, x.dtype, tuple(
+                (t.data_ptr(), t._version) for layer in layers
+                for m in (layer.norm1, layer.conv1, layer.norm2, layer.conv2)
+                for t in (*m._parameters.values(), *m._buffers.values())
+                if t is not None))
+        except RuntimeError:        # an inference tensor keeps no version
+            key = None
+        kept = self._packs.get(bi)
+        if kept is None or key is None or kept[0] != key:
+            kept = key, pack_dense_block(layers, self.block_inputs[bi],
+                                         x.dtype)
+            self._packs[bi] = kept
+            DenseNetBackbone.packs += 1
+        return kept[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packs.clear()
+        return super()._apply(fn, *args, **kwargs)
+
     def forward(self, x):
         with span("trunk.stem"):
             x = F.relu(self.norm0(self.conv0(x)))
             x = F.max_pool2d(x, 3, 2, padding=1)
-        for (names, trans), (block_span, trans_span) in zip(
-                self.blocks, self.stage_spans):
+        for bi, ((names, trans), (block_span, trans_span)) in enumerate(zip(
+                self.blocks, self.stage_spans)):
             with span(block_span):
-                for name in names:
-                    x = torch.cat([x, getattr(self, name)(x)], dim=1)
+                if self._on_kernel(x, bi):
+                    x = dense_block_eval(
+                        x, *self._block_pack(bi, x),
+                        dilation=self.config.block_dilations[bi])
+                else:
+                    for name in names:
+                        x = torch.cat([x, getattr(self, name)(x)], dim=1)
             if trans is not None:
                 with span(trans_span):
                     x = getattr(self, trans)(x)

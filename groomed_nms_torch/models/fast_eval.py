@@ -4,7 +4,7 @@ Counterpart of ``groomed_nms_tpu/models/fast_eval.py``.  Built once from a
 port ``RPN3D`` (``FastEvalRPN3D(model, dtype)``), it holds:
 
 * every BatchNorm's running statistics folded into per-channel (mul, add),
-  in f32, then cast to the compute dtype (``fold_bn``);
+  in f32, then cast to the compute dtype (``ops/kernels.py::fold_bn``);
 * the dense blocks named by ``kernel_blocks`` (default the two
   high-resolution ones, 0 and 1) packed once for kernel K4
   (``ops/kernels.py::dense_block_eval``, ``pack_dense_block``); the other
@@ -34,40 +34,10 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ..ops.kernels import DENSE_BLOCK_DTYPES, dense_block_eval
-from .densenet import DenseLayer, DenseNetBackbone
+from ..ops.kernels import (DENSE_BLOCK_DTYPES, dense_block_eval, fold_bn,
+                           pack_dense_block)
+from .densenet import DenseNetBackbone
 from .rpn_3d import RPN3D
-
-
-@torch.no_grad()
-def fold_bn(bn: nn.BatchNorm2d, dtype):
-    """Eval BatchNorm -> (mul, add): folded in f32, then cast to ``dtype``."""
-    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
-    mul = bn.weight.float() * inv
-    add = bn.bias.float() - bn.running_mean.float() * mul
-    return mul.to(dtype), add.to(dtype)
-
-
-@torch.no_grad()
-def pack_dense_block(layers: list[DenseLayer], c0: int, dtype):
-    """One block's folded weights in K4's layout, zero past each layer's
-    input: (mul1 [L, cmax], add1 [L, cmax], w1 [L, bw, cmax], mul2 [L, bw],
-    add2 [L, bw], w2 [L, G, 9*bw] with k = (ty*3 + tx)*bw + channel)."""
-    n = len(layers)
-    bw, growth = layers[0].conv1.out_channels, layers[0].conv2.out_channels
-    cmax = c0 + n * growth
-    kw = dict(dtype=dtype, device=layers[0].conv1.weight.device)
-    mul1, add1 = torch.zeros(n, cmax, **kw), torch.zeros(n, cmax, **kw)
-    w1 = torch.zeros(n, bw, cmax, **kw)
-    mul2, add2 = torch.zeros(n, bw, **kw), torch.zeros(n, bw, **kw)
-    w2 = torch.zeros(n, growth, 9 * bw, **kw)
-    for l, layer in enumerate(layers):
-        cin = c0 + l * growth
-        mul1[l, :cin], add1[l, :cin] = fold_bn(layer.norm1, dtype)
-        w1[l, :, :cin] = layer.conv1.weight[:, :, 0, 0]
-        mul2[l], add2[l] = fold_bn(layer.norm2, dtype)
-        w2[l] = layer.conv2.weight.permute(0, 2, 3, 1).reshape(growth, -1)
-    return mul1, add1, w1, mul2, add2, w2
 
 
 KERNEL_BLOCKS = (0, 1)         # the dense blocks K4 runs by default

@@ -17,8 +17,10 @@ boxes, the pairwise IoU matrix and the GrooMeD-NMS prune matrix
 K4 ``dense_block_eval`` (CUDA C++, ``csrc/dense_block.cu`` in bf16,
 ``csrc/dense_block_f32.cu`` in f32) replaces
 ``groomed_nms_tpu/ops/pallas_dense_block.py::dense_block_eval``: one
-eval-mode DenseNet block with BatchNorm folded to (mul, add), for the
-``fast_eval`` engine (``models/fast_eval.py``).  Its f32 form takes its
+eval-mode DenseNet block with BatchNorm folded to (mul, add)
+(``fold_bn``, ``pack_dense_block``), for the ``fast_eval`` engine
+(``models/fast_eval.py``) and the trunk's eval blocks in f32
+(``models/densenet.py``).  Its f32 form takes its
 products at f32 accuracy from three TF32 products, each operand split into
 TF32 halves; ``tf32_split`` is the prep kernel that splits the weights.
 
@@ -629,6 +631,45 @@ def _group_leaders_launch(m, valid, nms_threshold, group_size, plan):
 DENSE_BLOCK_DTYPES = (torch.bfloat16, torch.float32)
 
 
+def dense_block_takes(c0, growth, bw):
+    """Whether K4's kernels take a block of this shape: c0 and G multiples
+    of 8, G <= 64 and bw a multiple of 32 up to 128."""
+    return not (c0 % 8 or growth % 8 or growth > 64 or bw % 32 or bw > 128)
+
+
+@torch.no_grad()
+def fold_bn(bn, dtype):
+    """Eval BatchNorm -> (mul, add): folded in f32, then cast to ``dtype``."""
+    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+    mul = bn.weight.float() * inv
+    add = bn.bias.float() - bn.running_mean.float() * mul
+    return mul.to(dtype), add.to(dtype)
+
+
+@torch.no_grad()
+def pack_dense_block(layers, c0, dtype):
+    """One block's folded weights in K4's layout, zero past each layer's
+    input, from its dense layers (``models/densenet.py::DenseLayer``: norm1,
+    conv1, norm2, conv2): (mul1 [L, cmax], add1 [L, cmax], w1 [L, bw, cmax],
+    mul2 [L, bw], add2 [L, bw], w2 [L, G, 9*bw] with
+    k = (ty*3 + tx)*bw + channel)."""
+    n = len(layers)
+    bw, growth = layers[0].conv1.out_channels, layers[0].conv2.out_channels
+    cmax = c0 + n * growth
+    kw = dict(dtype=dtype, device=layers[0].conv1.weight.device)
+    mul1, add1 = torch.zeros(n, cmax, **kw), torch.zeros(n, cmax, **kw)
+    w1 = torch.zeros(n, bw, cmax, **kw)
+    mul2, add2 = torch.zeros(n, bw, **kw), torch.zeros(n, bw, **kw)
+    w2 = torch.zeros(n, growth, 9 * bw, **kw)
+    for l, layer in enumerate(layers):
+        cin = c0 + l * growth
+        mul1[l, :cin], add1[l, :cin] = fold_bn(layer.norm1, dtype)
+        w1[l, :, :cin] = layer.conv1.weight[:, :, 0, 0]
+        mul2[l], add2[l] = fold_bn(layer.norm2, dtype)
+        w2[l] = layer.conv2.weight.permute(0, 2, 3, 1).reshape(growth, -1)
+    return mul1, add1, w1, mul2, add2, w2
+
+
 def dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2, *,
                            dilation=1):
     """K4's function in PyTorch: a concat chain with the rounding points of
@@ -763,7 +804,7 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
     ``x0`` [B, c0, H, W] (channels_last keeps its copy into the stack a
     straight one) -> the block's whole stack [B, c0 + L*G, H, W] in
     channels_last, input channels first.  The weights, packed by
-    ``models/fast_eval.py::pack_dense_block`` in ``x0``'s dtype, contiguous:
+    ``pack_dense_block`` in ``x0``'s dtype, contiguous:
     ``mul1``/``add1`` [L, cmax] folded norm1 (zero past each layer's input),
     ``w1`` [L, bw, cmax] 1x1 kernels (K contiguous, zero past the input),
     ``mul2``/``add2`` [L, bw] folded norm2, ``w2`` [L, G, 9*bw] 3x3 kernels
@@ -776,8 +817,8 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
     bf16
     (``csrc/dense_block.cu::dense_block_eval``) and f32
     (``csrc/dense_block_f32.cu::dense_block_eval_f32``: products at f32
-    accuracy, 3xTF32), c0 and G multiples of 8, G <= 64 and bw a multiple
-    of 32 up to 128; anything else raises ``ValueError``.
+    accuracy, 3xTF32), the shapes ``dense_block_takes``; anything else
+    raises ``ValueError``.
     """
     layers, c0, cmax, bw, growth = _check_dense_block(
         x0, mul1, add1, w1, mul2, add2, w2, dilation)
@@ -785,7 +826,7 @@ def dense_block_eval(x0, mul1, add1, w1, mul2, add2, w2, *, dilation=1):
         return dense_block_eval_plain(x0, mul1, add1, w1, mul2, add2, w2,
                                       dilation=dilation)
 
-    if c0 % 8 or growth % 8 or growth > 64 or bw % 32 or bw > 128:
+    if not dense_block_takes(c0, growth, bw):
         raise ValueError(f"the dense-block kernel takes c0 and G multiples of "
                          f"8, G <= 64, bw in (32, 64, 96, 128); got c0={c0}, "
                          f"G={growth}, bw={bw}")

@@ -404,6 +404,47 @@ def test_f32_fast_eval_engine_on_cuda_matches_cpu(cuda, kernel_blocks):
         FastEvalRPN3D(model.to(cuda), torch.float16)
 
 
+def test_rpn3d_eval_blocks_on_k4_match_the_chain(cuda, monkeypatch):
+    """The tiny RPN3D in f32 eval on the card (TF32 off): every dense block
+    on K4, packed once over two forwards, against the same model with K4's
+    device test patched off (the concat chain on cuDNN), within the f32
+    engine's tolerance: fused_raw within 1e-4 of max |ref| (mean within
+    1e-5 of mean |ref|), acceptance within 1e-5."""
+    from groomed_nms_torch.models import densenet
+
+    model, g = _perturbed_tiny_rpn3d()
+    model = model.to(cuda, memory_format=torch.channels_last)
+    blocks = len(model.config.backbone.block_layers)
+    x = torch.randn((2, 3, 64, 128), generator=g).to(
+        cuda, memory_format=torch.channels_last)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            launches = kernels.dense_block_eval.launches
+            packs = densenet.DenseNetBackbone.packs
+            got = model(x)
+            again = model(x)
+            torch.cuda.synchronize()
+            assert kernels.dense_block_eval.launches == launches + 2 * blocks
+            assert densenet.DenseNetBackbone.packs == packs + blocks
+            monkeypatch.setattr(densenet, "_kernel_device", lambda x: False)
+            ref = model(x)
+            torch.cuda.synchronize()
+            assert kernels.dense_block_eval.launches == launches + 2 * blocks
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert torch.equal(again.fused_raw, got.fused_raw)
+    err = (got.fused_raw - ref.fused_raw).abs()
+    assert err.max() <= 1e-4 * ref.fused_raw.abs().max()
+    assert err.mean() <= 1e-5 * ref.fused_raw.abs().mean()
+    torch.testing.assert_close(got.accept_prob, ref.accept_prob, rtol=0,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("method", ["linear", "sigmoidal", "soft_nms"])
 @pytest.mark.parametrize("b,n", [(8, 512), (1, 1000), (1, 1), (3, 33),
                                  (2, 300), (2, 31), (2, 64), (3, 65),

@@ -27,9 +27,9 @@ from groomed_nms_torch.flagship import build_flagship
 from groomed_nms_torch.models.fast_eval import (FastEvalBackbone,
                                                 FastEvalRPN3D, _avg_pool_2x2,
                                                 _FoldedNorm,
-                                                check_kernel_dtype, fold_bn,
-                                                pack_dense_block)
+                                                check_kernel_dtype)
 from groomed_nms_torch.ops import kernels
+from groomed_nms_torch.ops.kernels import fold_bn, pack_dense_block
 from torch_port_common import tiny_models, to_np
 
 
