@@ -63,7 +63,9 @@ def make_infer(model, dcfg, target_h, crop_w, compute_dtype=None):
     model under bf16 autocast (BatchNorm statistics and the head's f32
     splits stay f32); None runs in f32.  The model is put in eval mode.
     A call is the program's span ``infer`` (``utils/spans.py``), over
-    ``preprocess``, the model's spans and ``detect``'s.
+    ``preprocess``, the model's spans and ``detect``'s.  On the card it
+    makes no synchronising call once its kernels are built: it returns when
+    the batch is queued, so a caller can queue the next one behind it.
     """
     model.eval()
 

@@ -107,6 +107,14 @@ def select_top_pre_nms(outputs, rois, rois_3d, cfg: DetectConfig):
     return sel, rois[idx], rois_3d[idx]
 
 
+def stat_cols_3d(v, decomp_alpha):
+    """The 3D de-normalisation columns of the 13-column target statistics
+    ``v``: 4-9 and, with ``decomp_alpha``, 11-12 (sin, cos), else 10 (rot).
+    Sliced, not indexed by a Python list: such an index is built on the
+    host and copied to the card, and the copy waits for the stream."""
+    return torch.cat([v[4:10], v[11:13]]) if decomp_alpha else v[4:11]
+
+
 def decode_detections(outputs, rois, rois_3d, p2, p2_inv, scale_factor,
                       bbox_means, bbox_stds, cfg: DetectConfig):
     """Decode head outputs into detection rows.
@@ -134,9 +142,9 @@ def decode_detections(outputs, rois, rois_3d, p2, p2_inv, scale_factor,
     ctr_x = rois[..., 0] + 0.5 * widths
     ctr_y = rois[..., 1] + 0.5 * heights
 
-    stat_idx = [4, 5, 6, 7, 8, 9, 11, 12] if cfg.decomp_alpha else \
-        [4, 5, 6, 7, 8, 9, 10]
-    dn = bbox_3d[..., :len(stat_idx)] * stds[stat_idx] + means[stat_idx]
+    n_dn = 8 if cfg.decomp_alpha else 7
+    dn = bbox_3d[..., :n_dn] * stat_cols_3d(stds, cfg.decomp_alpha) + \
+        stat_cols_3d(means, cfg.decomp_alpha)
 
     x2d = (dn[..., 0] * widths + ctr_x) / scale_factor[:, None]
     y2d = (dn[..., 1] * heights + ctr_y) / scale_factor[:, None]

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..anchors import compute_targets
-from ..inference import top_k_indices
+from ..inference import stat_cols_3d, top_k_indices
 from ..ops.boxes import bbox_transform_inv
 from ..ops.geometry import alpha_to_rot_y, get_corners_of_cuboid, snap_to_pi
 from ..ops.groomed_nms import _abs, _clip, _rows, groomed_nms_boxes
@@ -474,15 +474,9 @@ def rpn_3d_loss(outputs, rois, rois_3d, batch: GTBatch, bbox_means, bbox_stds,
         heights = rois[:, 3] - rois[:, 1] + 1.0
         ctr_x = rois[:, 0] + 0.5 * widths
         ctr_y = rois[:, 1] + 0.5 * heights
-        # de-normalisation columns of the 13-col stats: 4-9 and, in decomp
-        # mode, 11-12 (sin, cos), else 10 (rot); sliced, not list-indexed, so
-        # no index tensor is copied to the card
-        def stat_cols(v):
-            return torch.cat([v[4:10], v[11:13]]) if cfg.decomp_alpha \
-                else v[4:11]
-
         n_dn = 8 if cfg.decomp_alpha else 7
-        dn = bbox_3d[..., :n_dn] * stat_cols(stds) + stat_cols(means)
+        dn = bbox_3d[..., :n_dn] * stat_cols_3d(stds, cfg.decomp_alpha) + \
+            stat_cols_3d(means, cfg.decomp_alpha)
         x2d_dn = dn[..., 0] * widths + ctr_x
         y2d_dn = dn[..., 1] * heights + ctr_y
         z2d_dn = rois_3d[:, 0] + dn[..., 2]

@@ -547,6 +547,56 @@ def test_groomed_nms_operator_does_not_synchronise(cuda):
     assert bool((res.leader >= 0).any())
 
 
+@pytest.mark.parametrize("on_k4", [True, False])
+@pytest.mark.parametrize("decomp_alpha", [True, False])
+def test_serving_entry_does_not_synchronise(cuda, decomp_alpha, on_k4):
+    """``make_infer`` on a tiny RPN3D in f32 on the card (TF32 off):
+    preprocess, the trunk's dense blocks on K4 (the tiny topology) or on
+    the concat chain (a bottleneck of 48, which K4 does not take), the
+    head, K1, the decode and K2 make no synchronising CUDA call once the
+    kernels, the packs and cuDNN's choices are built."""
+    import dataclasses
+
+    backbone = tiny_densenet_config()
+    if not on_k4:
+        backbone = dataclasses.replace(backbone, bn_size=6)
+    cfg = RPNConfig(num_anchors=6, prop_features=64,
+                    predict_acceptance_prob=True, backbone=backbone)
+    model = init_weights(RPN3D(cfg), torch.Generator().manual_seed(1))
+    model = model.to(cuda, memory_format=torch.channels_last)
+    rs = np.random.default_rng(1)
+    priors = np.concatenate([np.tile([[0, 0, 30, 20]], (6, 1)) * rs.uniform(
+        0.5, 2, (6, 1)), np.abs(rs.normal(size=(6, 7))) + 1], 1)
+    rois = locate_anchors(priors, (4, 8), 16)
+    p2 = np.tile(np.diag([700.0, 700.0, 1.0, 1.0]), (2, 1, 1))
+    dev = lambda x, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.asarray(x), dtype=dt, device=cuda)
+    args = (dev(rs.integers(0, 256, (2, 48, 96, 3)), torch.uint8),
+            dev([0.485, 0.456, 0.406]), dev([0.229, 0.224, 0.225]),
+            dev(rois), dev(priors[rois[:, 4].astype(int), 4:]), dev(p2),
+            dev(np.linalg.inv(p2)), dev(np.full((2,), 64 / 48)),
+            dev(rs.normal(0, 0.1, 13)), dev(rs.uniform(0.5, 1.5, 13)))
+    infer = make_infer(model, DetectConfig(decomp_alpha=decomp_alpha), 64,
+                       128)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want_d, want_v = infer(*args)     # builds the kernels and the packs
+        torch.cuda.synchronize()
+        launches = kernels.dense_block_eval.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got_d, got_v = infer(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    blocks = len(backbone.block_layers)
+    assert kernels.dense_block_eval.launches == launches + on_k4 * blocks
+    assert torch.equal(got_v, want_v) and bool(want_v.any())
+    assert torch.equal(got_d, want_d)
+
+
 def _grouping_case(b, n, kind, dev, seed):
     """m [b, n, n] f32 and valid [b, n]: the unmasked IoU of clustered
     boxes with padding rows and a hole every 7th row ("iou"), or that IoU

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from groomed_nms_tpu import inference as jax_inf
 from groomed_nms_tpu.anchors import locate_anchors as jax_locate
@@ -21,7 +22,10 @@ from groomed_nms_torch import inference
 from groomed_nms_torch.anchors import locate_anchors
 from groomed_nms_torch.config import load_config
 from groomed_nms_torch.eval.tester import make_infer
-from torch_port_common import tiny_models
+from groomed_nms_torch.models.densenet import tiny_densenet_config
+from groomed_nms_torch.models.rpn_3d import RPN3D, RPNConfig
+from groomed_nms_torch.utils.weights import init_weights
+from torch_port_common import TINY, tiny_models
 
 CLASSES = ["Car", "Pedestrian", "Cyclist"]
 SRC_HW, CROP_HW = (48, 96), (64, 128)
@@ -155,3 +159,90 @@ def test_differentiable_nms_at_test_is_refused():
                                  diff_nms_pruning_method="no_such_method")
     with pytest.raises(ValueError, match="pruning_method"):
         inference.nms_and_topk(torch.zeros(1, 5, 17), torch.ones(1, 5), cfg)
+
+
+def _decode_case(rs, b, r, per_image):
+    """decode_detections' arguments at [b, r]: the head's outputs, rois
+    shared [r, *] or per image [b, r, *], and _slice_inputs' cameras and
+    target statistics."""
+    logits = rs.normal(0, 2, (b, r, 4)).astype(np.float32)
+    prob = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    b3 = rs.normal(0, 0.5, (b, r, 10)).astype(np.float32)
+    b3[..., 8:10] = rs.uniform(0, 1, (b, r, 2))
+    outs = {"prob": prob.astype(np.float32),
+            "bbox_2d": rs.normal(0, 0.3, (b, r, 4)).astype(np.float32),
+            "bbox_3d": b3,
+            "accept_prob": rs.uniform(0.2, 1, (b, r)).astype(np.float32)}
+    lead = (b, r) if per_image else (r,)
+    rois = np.concatenate([rs.uniform(0, 100, lead + (2,)),
+                           np.zeros(lead + (3,))], -1)
+    rois[..., 2:4] = rois[..., :2] + rs.uniform(8, 60, lead + (2,))
+    rois_3d = np.abs(rs.normal(size=lead + (7,))) + 1
+    inputs = _slice_inputs(rs, b)
+    args = [rois.astype(np.float32), rois_3d.astype(np.float32)] + [
+        inputs[k] for k in ("p2", "p2_inv", "scale", "bbox_means",
+                            "bbox_stds")]
+    return ({k: torch.from_numpy(v) for k, v in outs.items()},
+            [torch.from_numpy(a) for a in args])
+
+
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("decomp_alpha", [True, False])
+def test_decode_rows_equal_the_list_indexed_form(monkeypatch, decomp_alpha,
+                                                 per_image):
+    """The target statistics picked by slices give the rows, bit for bit,
+    that indexing them with the Python list of their columns gives."""
+    outs, args = _decode_case(np.random.default_rng(7), 2, 300, per_image)
+    cfg = inference.DetectConfig(decomp_alpha=decomp_alpha)
+    cols = [4, 5, 6, 7, 8, 9, 11, 12] if decomp_alpha else \
+        [4, 5, 6, 7, 8, 9, 10]
+    stats = args[-1]
+    assert torch.equal(inference.stat_cols_3d(stats, decomp_alpha),
+                       stats[cols])
+    dets, scores = inference.decode_detections(outs, *args, cfg)
+    monkeypatch.setattr(inference, "stat_cols_3d", lambda v, _: v[cols])
+    ref_dets, ref_scores = inference.decode_detections(outs, *args, cfg)
+    assert dets.shape == (2, 300, inference.NUM_DET_COLS)
+    assert torch.equal(dets, ref_dets) and torch.equal(scores, ref_scores)
+
+
+class _HostRoundTrips(TorchDispatchMode):
+    """Records each op that, on a CUDA card, takes a round trip through
+    the host: a tensor built from Python data while the call runs
+    (``lift_fresh``: on the card a copy from pageable host memory, which
+    waits for the stream), a read of a tensor's value (``.item()``,
+    ``bool()``) and an op whose output's shape depends on the data."""
+
+    OPS = ("lift_fresh", "lift_fresh_copy", "_local_scalar_dense", "nonzero",
+           "masked_select", "_unique2", "unique_consecutive", "unique_dim")
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ in self.OPS:
+            self.found.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("decomp_alpha", [True, False])
+def test_serving_entry_takes_no_host_round_trip(decomp_alpha):
+    """The CPU's stand-in for the card's ``set_sync_debug_mode("error")``
+    (``test_torch_cuda.py::test_serving_entry_does_not_synchronise``): the
+    whole ``make_infer`` of a tiny RPN3D (preprocess, model, K1's and K2's
+    ops, the decode) runs under a dispatch mode that records every op that
+    would make the host wait for the card, and none is recorded.  A list
+    index into the target statistics is one (``lift_fresh``)."""
+    model = init_weights(
+        RPN3D(RPNConfig(backbone=tiny_densenet_config(),
+                        predict_acceptance_prob=True, **TINY)),
+        torch.Generator().manual_seed(0)).eval()
+    dcfg = inference.DetectConfig(decomp_alpha=decomp_alpha)
+    infer = make_infer(model, dcfg, *CROP_HW)
+    args = [torch.from_numpy(v)
+            for v in _slice_inputs(np.random.default_rng(2), 2).values()]
+    with _HostRoundTrips() as mode:
+        dets, valid = infer(*args)
+    assert dets.shape == (2, dcfg.nms_topN_post, inference.NUM_DET_COLS)
+    assert mode.found == []
