@@ -7,8 +7,8 @@ the grouping kernel on the card, masked rescore), in Mboxes/s; K3 alone is
 ``ops/kernels.py::fused_iou_prune`` in Gpairs/s.  The boxes and scores are
 the JAX tool's, drawn from numpy ``default_rng(0)``.
 
-Before it times, each is checked against its plain version by
-``chip_smoke.py``'s rules: K3's IoU identical to ``fused_iou_prune_plain``,
+Before it times, each is checked against its plain version by the smoke
+run's rules: K3's IoU identical to ``fused_iou_prune_plain``,
 and the operator's leaders and keep identical to the CPU path's with its
 rescored values within 1e-6.  If either differs, no number is printed and
 the tool raises.
@@ -90,7 +90,7 @@ def main(argv=None):
     import torch
 
     from groomed_nms_torch.ops import kernels
-    from groomed_nms_torch.utils import measure
+    import card_measure as measure
 
     device = measure.tool_device(args.device)
     print(measure.header(device), flush=True)

@@ -48,7 +48,7 @@ def main(argv=None):
     import torch
 
     from groomed_nms_torch.flagship import build_flagship
-    from groomed_nms_torch.utils import measure
+    import card_measure as measure
 
     device = measure.tool_device(args.device)
     print(measure.header(device), flush=True)

@@ -236,7 +236,7 @@ def parse_args(argv=None):
 def main(argv=None):
     """Write the results JSON; returns its path."""
     args = parse_args(argv)
-    from groomed_nms_torch.utils import measure
+    import card_measure as measure
 
     device = measure.tool_device(args.device)
     print(measure.header(device), flush=True)

@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
-"""Smoke run of ``groomed_nms_torch`` on one CUDA card (an H100).
+"""Smoke run of ``groomed_nms_torch`` on one CUDA card (an H100): the
+port's checks on the card.
 
     python3 chip_smoke.py
+
+It checks; the compare scripts time.  K2, K3, K4, the grouping, the
+GrooMeD operator and the fast_eval engine are timed, beside their bounds
+and yardsticks, by ``scripts/k2_compare.py``, ``k3_compare.py``,
+``k4_compare.py``, ``group_compare.py`` and ``fast_eval_compare.py``; this
+run times only what no compare script does (K1, the served and trained
+flagship, the paths of phases 10-19).  Both take their shared helpers,
+shapes and inputs from ``card_measure.py``.
 
 Phases, in order; any failure raises and exits non-zero:
   1. device  -- a CUDA card is required; prints its name and power limit;
@@ -19,17 +28,14 @@ Phases, in order; any failure raises and exits non-zero:
   4. K2      -- greedy_nms against its plain version at [8, 3000, 4] with
                 clustered boxes, padding rows, equal scores and IoUs at and
                 next to the 0.4 threshold: keep masks must be identical;
-                kernel and plain times, the kept rows and the nms_mask /
-                nms_sweep split of a call (torch.profiler);
   5. slice   -- the flagship (DenseNet-121, 36 anchors, acceptance, bf16,
                 batch 8, 512x1760) on uint8 375x1242 frames through
                 make_infer: checked against the CPU path at a small size,
                 then timed; both kernels must launch once per batch; the
                 detections must be finite and write 8 KITTI txt files.
                 Then K2 again on the flagship's own K2 input (the decoded
-                top-3000 rows of one batch, captured once; the sweep's time
-                grows with the rows kept): identical keep masks, times,
-                split;
+                top-3000 rows of one batch, captured once): identical keep
+                masks;
   6. K4     -- dense_block_eval against its plain version (TF32 off), in
                 bf16 and in f32, at DenseNet-121's four block shapes: the
                 flagship's kernel blocks 1 [8, 64, 128, 440] -> 256 ch and
@@ -37,18 +43,12 @@ Phases, in order; any failure raises and exits non-zero:
                 [8, 256, 32, 110] -> 1024 ch and 4 (dilation 2)
                 [8, 512, 32, 110] -> 1024 ch; seeded input and folded
                 affines; relative errors (bf16 also layer by layer from the
-                kernel's own inputs), kernel and plain times, TFLOP/s, the
-                bound (kernels.dense_block_work at the card's peaks; f32
-                products at 3xTF32's rate) and the kernel's share of it,
-                and as a yardstick the block's 2L cuDNN convolutions alone
-                at the same shapes in the same dtype; in f32 a call split
-                by kernel (tf32_split, the 1x1, the 3x3; torch.profiler)
-                beside the earlier design's times (K4_F32_EARLIER);
+                kernel's own inputs);
   7. fast_eval -- the weight-folded engine: (a) on the card against the CPU
                 path at 2x64x128 bf16; (b) against the rpn3d engine at full
                 size from one RPN3D with perturbed BatchNorm statistics;
-                (c) the flagship through make_infer with engine="fast_eval",
-                timed: K4 twice per batch, K1 and K2 once; trunk breakdown;
+                (c) the flagship through make_infer with engine="fast_eval":
+                K4 twice per batch, K1 and K2 once;
                 (d) the f32 engine on the card against the CPU path at
                 2x64x128, TF32 off; (e) the f32 flagship (compute_dtype
                 None, as the shipped configs) through make_infer, fast_eval
@@ -61,22 +61,18 @@ Phases, in order; any failure raises and exits non-zero:
                 [1, 1000, 4], at the edge sizes K3_EDGE and on boxes whose
                 sizes span 2^-25..2^63 (quotients outside the kernel's
                 fast range, unions at the 1e-12 clamp and past 2^126);
-                kernel and plain times at the two shapes, Gpairs/s, the
-                bound (kernels.iou_prune_work) and the share of it;
   9. operator -- the grouping kernel (kernels.group_leaders) against its
                 plain version at group_cases() (IoUs with padding holes;
                 asymmetric overlaps with ties at the threshold and NaNs;
                 group sizes -1, 0, 1, 100; N on both sides of the cluster
                 path's limit, each case on the path group_leaders_plan
-                names, by the per-path launch counts), timed on the
+                names, by the per-path launch counts), and on the
                 operator's own input at [8, 512] and [1, 1000] (one
-                cluster launch a call) beside its bound, its split by
-                kernel and its plain version; then GrooMeD-NMS (sort,
-                K3, grouping, rescoring) on the card against the CPU path
-                at [8, 512] and [1, 1000]: one K3 and one grouping launch a
+                cluster launch a call); then GrooMeD-NMS (sort, K3,
+                grouping, rescoring) on the card against the CPU path at
+                [8, 512] and [1, 1000]: one K3 and one grouping launch a
                 call, on the cluster path, no host synchronisation
-                (torch.cuda sync debug mode "error"), host ms, Mboxes/s
-                and the split by stage;
+                (torch.cuda sync debug mode "error");
  10. groomed test -- the flagship through make_infer with GrooMeD-NMS at
                 test time: K3, the grouping and K1 once per batch, K2
                 never; timed;
@@ -257,14 +253,14 @@ Phases, in order; any failure raises and exits non-zero:
                 a step in it; (c) analysis/bench_latency_torch.py at
                 batches 1 and 8; (d) analysis/bench_groomed_nms_torch.py at
                 N = 1000, its check against the plain versions first; (e)
-                analysis/roofline_train_torch.py in train mode (also with
-                --remat layer) and infer mode at batch 8, its guard
-                untripped; (f) analysis/bench_loader_torch.py on phase 13's
-                tree; (g) analysis/compare_video_training_schemes_torch.py
+                analysis/bench_loader_torch.py on phase 13's tree; (f)
+                analysis/compare_video_training_schemes_torch.py
                 --iters 4 --batch 2 into a temporary file, every value
                 finite or null; each part's kernel launches counted (K4 held
                 at 0);
- 20. the kernels JSON line (K1 and K2 with a "video" entry each: the check
+ 20. the kernels JSON line (each kernel's launches and its largest error
+     against its plain version, K1 also its times and bound at the main
+     path's shape; K1 and K2 with a "video" entry each: the check
      at the video path's shape, its times and bound, and its launches; K1,
      K2, K3 and the grouping with an "export" entry: their launches through
      the detection artifacts of phase 16, K1's and K2's through one video
@@ -274,9 +270,11 @@ Phases, in order; any failure raises and exits non-zero:
      kernel with a "tools" entry: its launches in each part of phase 19),
      then the last line: {"ok": true, "device": {...}}.
 Every timing line carries the card's name and power limit.  Imports torch,
-numpy and groomed_nms_torch only.  ``chip_smoke.py --rank-worker SCRIPT DIR
-[--no-tf32] -- ARGS`` is phase 18's rank under torchrun (``rank_worker``).  Tolerances are fixed below, before any
-run; every error is printed before it is checked.
+numpy, ``card_measure.py`` and groomed_nms_torch only.  ``chip_smoke.py
+--rank-worker SCRIPT DIR [--no-tf32] -- ARGS`` is phase 18's rank under
+torchrun (``rank_worker``).  Tolerances are fixed below and in
+``card_measure.py`` (K4's), before any run; every error is printed before
+it is checked.
 """
 
 import atexit
@@ -293,8 +291,14 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from card_measure import (K2_SHAPE, K3_SHAPES, K4_BLOCKS, K4_DTYPES,
+                          K4_MORE_BLOCKS, PEAK_F32, bound, card_line,
+                          dense_block_case, group_case, group_cases,
+                          k2_flagship_input, k2_work_bound, k3_case,
+                          k4_agrees, kernel_events, nms_case,
+                          operator_inputs, rel_err, time_ms, trace_kernels,
+                          wall_ms)
 from groomed_nms_torch.config import load_config
 from groomed_nms_torch.data.augment import preprocess_images
 from groomed_nms_torch.eval.kitti_eval import ensure_binary
@@ -305,53 +309,18 @@ from groomed_nms_torch.inference import (clip_detections, decode_detections,
                                          rpn_outputs_dict, select_top_pre_nms,
                                          write_kitti_detections)
 from groomed_nms_torch.models.densenet import tiny_densenet_config
-from groomed_nms_torch.models.fast_eval import FastEvalRPN3D, KernelDenseBlock
+from groomed_nms_torch.models.fast_eval import FastEvalRPN3D
 from groomed_nms_torch.models.rpn_3d import RPN3D
 from groomed_nms_torch.ops import _build, kernels
 from groomed_nms_torch.ops.groomed_nms import groomed_nms_boxes
 from groomed_nms_torch.ops.iou import pairwise_iou
-from groomed_nms_torch.utils.measure import (PEAK_BF16, PEAK_F32,
-                                             PEAK_F32_PRODUCTS, bound,
-                                             card_line)
 from groomed_nms_torch.utils.weights import init_weights
 
 K1_SHAPE = (8, 126720, 18)            # 32 x 110 x 36 anchors, bf16 head
-K2_SHAPE = (8, 3000)                  # nms_topN_pre rows per image
 WARMUP, TIMED = 3, 10
 KITTI_CLASSES = ["Car", "Pedestrian", "Cyclist"]
-# K4 at the flagship's kernel blocks: (B, c0, H, W, L, G, bw, dilation)
-K4_BLOCKS = {"block1": (8, 64, 128, 440, 6, 32, 128, 1),
-             "block2": (8, 128, 64, 220, 12, 32, 128, 1)}
-# and at DenseNet-121's blocks 3-4, which fast_eval runs with K4 when asked
-K4_MORE_BLOCKS = {"block3": (8, 256, 32, 110, 24, 32, 128, 1),
-                  "block4": (8, 512, 32, 110, 16, 32, 128, 2)}
-K4_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # DenseNet-121's dense blocks: K4 calls a batch of RPN3D in f32 eval
 TRUNK_BLOCKS = 4
-# f32 K4's kernels, split by name in phase 6: the prep kernel (once a call)
-# and the 1x1 and 3x3 (L each)
-K4_F32_KERNELS = ("tf32_split", "conv1x1_bn_relu", "conv3x3")
-# f32 K4's earlier design (the TF32 split inside both product loops, both
-# kernels on mma.sync), read in one call by scripts/k4_compare.py --dtype
-# f32 on that design's tree (an H100 80GB HBM3 at 700 W): ms a call (CUDA
-# events) and its 1x1 / 3x3 kernels' ms (torch.profiler), printed as
-# earlier values beside the new design's split; not part of this run
-K4_F32_EARLIER = {
-    "block1": (6.9113, {"conv1x1_bn_relu": 2.4772, "conv3x3": 4.364}),
-    "block2": (5.2759, {"conv1x1_bn_relu": 2.691, "conv3x3": 2.559}),
-    "block3": (4.4736, {"conv1x1_bn_relu": 3.0197, "conv3x3": 1.2811}),
-    "block4": (3.4448, {"conv1x1_bn_relu": 2.4331, "conv3x3": 0.862})}
-# K4 vs its plain version over the new channels: max |err| / max |ref| and
-# mean |err| / mean |ref|; the two sum in other orders, so a bf16 rounding
-# of h or of an output may land one step (2^-8 relative) apart.  Held layer
-# by layer (each layer's plain version fed the kernel's own stack) at every
-# block, and over the whole block at the flagship's blocks 1-2: over more
-# layers a step in an early layer moves every later layer's inputs, and two
-# bf16 computations of 24 layers drift apart by more than one layer's steps
-K4_MAX_REL, K4_MEAN_REL = 1e-2, 1e-3
-# f32, over the whole block: products at f32 accuracy (3xTF32) summed in
-# other orders (a single TF32 product would be ~5e-4 off)
-K4_F32_MAX_REL, K4_F32_MEAN_REL = 1e-5, 1e-5
 # the fast_eval engine, fused_raw: max |err| / max |ref|, mean |err| / mean
 # |ref| (121 bf16 layers summed in other orders; against rpn3d also the
 # folded BatchNorm applied in bf16, where autocast applies it in f32), and
@@ -365,14 +334,9 @@ FE32_MAX_REL, FE32_MEAN_REL, FE32_ACCEPT_ATOL = 1e-4, 1e-4, 1e-4
 # methods within 1e-6; the operator's rescored values within 1e-6 of the
 # CPU path with identical leaders and keep masks
 K3_ATOL, OPERATOR_ATOL = 1e-6, 1e-6
-K3_SHAPES = {"train": (8, 512), "analysis": (1, 1000)}
 # K3's edge sizes (B, N): one box, ragged tiles, N % 4 != 0 (scalar
 # stores), many tiles
 K3_EDGE = ((1, 1), (2, 31), (3, 33), (2, 64), (3, 65), (2, 100), (1, 2048))
-# the grouping's time at [8, 512] with its earlier design, the bits and
-# sweep kernels alone (as first measured by this script on the H100), for
-# the line that prints the cluster kernel's beside it
-GROUP_TWO_KERNEL_MS = 0.0237
 # the grouping kernel: identical to its plain version at each (B, N) of
 # group_cases() and each of these group sizes
 GROUP_SIZES = (-1, 0, 1, 100)
@@ -382,162 +346,20 @@ GROUP_SIZES = (-1, 0, 1, 100)
 # Not DenseNet-121: at random init its train-mode step turns a 1e-7
 # relative change of its weights into a ~0.4% change of the whole update
 # (measured on the CPU), so two backends cannot agree on it to 1e-4
-
 TRAIN_RTOL, TRAIN_ATOL, TRAIN_PARAM_REL = 1e-3, 1e-5, 1e-4
-# the card's peaks, card_line and bound are groomed_nms_torch/utils/
-# measure.py's, shared with the tools
 # f32 operations of K1 per logit (exp, sum, max, divide); an IoU test's are
 # kernels.IOU_TEST_OPS
 HEAD_OPS = 4
 
 
-def time_ms(fn, reps, flush):
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events), the
-    50 MB L2 overwritten before each, as after the conv that feeds it.  A
-    ~1 ms spin kernel ahead of the start event keeps the card busy while the
-    host enqueues ``fn``, so host launch overhead does not show as time."""
-    fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def rel_err(got, ref):
-    """(max |err| / max |ref|, mean |err| / mean |ref|, max |err|)."""
-    got, ref = got.float(), ref.float()
-    err = (got - ref).abs()
-    return ((err.max() / ref.abs().max()).item(),
-            (err.mean() / ref.abs().mean()).item(), err.max().item())
-
-
-def dense_block_case(rs, b, c0, h, w, layers, growth, bw, dev,
-                     dtype=torch.bfloat16):
-    """Seeded block input and K4's packed weights in ``dtype``: folded
-    affines with mul ~ U(0.5, 1.5), add ~ N(0, 0.2), LeCun-normal
-    kernels."""
-    cmax = c0 + layers * growth
-
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
-
-    x0 = t(rs.normal(size=(b, c0, h, w))).contiguous(
-        memory_format=torch.channels_last)
-    return (x0, t(rs.uniform(0.5, 1.5, (layers, cmax))),
-            t(rs.normal(0, 0.2, (layers, cmax))),
-            t(rs.normal(size=(layers, bw, cmax)) / np.sqrt(cmax)),
-            t(rs.uniform(0.5, 1.5, (layers, bw))),
-            t(rs.normal(0, 0.2, (layers, bw))),
-            t(rs.normal(size=(layers, growth, 9 * bw)) / np.sqrt(9 * bw)))
-
-
-def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev,
-                      dtype=torch.bfloat16):
-    """K4's yardstick (the port never calls it): the block's 2L cuDNN
-    convolutions alone in ``dtype``, channels_last; per layer the 1x1 from
-    a contiguous [b, cin, h, w] to bw and the dilated 3x3 from [b, bw, h, w]
-    to G.  No BatchNorm, ReLU or concatenation.  Returns a function that
-    runs them all (in f32, with whatever ``cudnn.allow_tf32`` is set when
-    it runs)."""
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    def t(*shape):
-        return (torch.randn(shape, generator=g, device=dev) * 0.1).to(
-            dtype).contiguous(memory_format=torch.channels_last)
-
-    xs = [t(b, c0 + l * growth, h, w) for l in range(layers)]
-    k1s = [t(bw, c0 + l * growth, 1, 1) for l in range(layers)]
-    k2s = [t(growth, bw, 3, 3) for _ in range(layers)]
-    hin = t(b, bw, h, w)
-
-    def run():
-        for x, k1, k2 in zip(xs, k1s, k2s):
-            F.conv2d(x, k1)
-            F.conv2d(hin, k2, padding=dil, dilation=dil)
-    return run
-
-
-def dense_block_layer_errors(got, bargs, dil):
-    """K4's new channels layer by layer against the plain version fed the
-    kernel's own stack (each layer's input channels as the kernel wrote
-    them): (max |err| / max |ref|, mean |err| / mean |ref|) over all the new
-    channels.  Each layer's rounding is held apart from the steps that
-    earlier layers' roundings passed on."""
-    x0, mul1, add1, w1, mul2, add2, w2 = bargs
-    layers, growth, c0 = w1.shape[0], w2.shape[1], x0.shape[1]
-    err_max = ref_max = err_sum = ref_sum = 0.0
-    for l in range(layers):
-        cin = c0 + l * growth
-        cut = cin + growth
-        ref = kernels.dense_block_eval_plain(
-            got[:, :cin], mul1[l:l + 1, :cut], add1[l:l + 1, :cut],
-            w1[l:l + 1, :, :cut], mul2[l:l + 1], add2[l:l + 1],
-            w2[l:l + 1], dilation=dil)[:, cin:].float()
-        err = (got[:, cin:cut].float() - ref).abs()
-        err_max = max(err_max, err.max().item())
-        ref_max = max(ref_max, ref.abs().max().item())
-        err_sum += err.sum().item()
-        ref_sum += ref.abs().sum().item()
-    return err_max / ref_max, err_sum / ref_sum
-
-
-def k4_agrees(name, got, bargs, dil):
-    """K4's stack ``got`` against its plain version on ``bargs`` (run here;
-    TF32 must be off): the input channels exact, and the new channels
-    within K4_F32_* over the whole block in f32; in bf16 within K4_MAX_REL
-    and K4_MEAN_REL layer by layer, and over the whole block at the
-    flagship's blocks (K4_BLOCKS).  Returns (ok, figures, a line)."""
-    c0 = bargs[0].shape[1]
-    ref = kernels.dense_block_eval_plain(*bargs, dilation=dil)
-    max_rel, mean_rel, max_abs = rel_err(got[:, c0:], ref[:, c0:])
-    del ref
-    same_x0 = torch.equal(got[:, :c0], bargs[0])
-    layer_rel = None
-    if got.dtype == torch.float32:
-        tol = (K4_F32_MAX_REL, K4_F32_MEAN_REL)
-        ok = max_rel <= tol[0] and mean_rel <= tol[1]
-        held = "whole block held"
-    else:
-        tol = (K4_MAX_REL, K4_MEAN_REL)
-        layer_rel = dense_block_layer_errors(got, bargs, dil)
-        ok = layer_rel[0] <= tol[0] and layer_rel[1] <= tol[1]
-        if name in K4_BLOCKS:
-            ok = ok and max_rel <= tol[0] and mean_rel <= tol[1]
-            held = "whole block and each layer held"
-        else:
-            held = "each layer held, the whole block reported"
-    layers = ("" if layer_rel is None else
-              f"; layer by layer from the kernel's own inputs max/max "
-              f"{layer_rel[0]:.3e}, mean/mean {layer_rel[1]:.3e}")
-    text = (f"whole block max|err|/max|ref| {max_rel:.3e}, mean|err|/"
-            f"mean|ref| {mean_rel:.3e}, max|err| {max_abs:.3e}{layers} (tol "
-            f"{tol[0]:g} / {tol[1]:g}, {held}); input channels copied "
-            f"exactly: {same_x0}")
-    figures = dict(max_abs=max_abs, max_rel=max_rel, mean_rel=mean_rel,
-                   layer_rel=layer_rel)
-    return same_x0 and ok, figures, text
-
-
-def k4_phase(dev, flush, stamp):
+def k4_phase(dev):
     """Phase 6: K4 against its plain version (TF32 off: products in full
     f32 from the same operands as the kernel's) in each dtype at each of
-    DenseNet-121's four block shapes, timed beside its bound, its plain
-    version and cuDNN's 2L convolutions in the same dtype (f32 also with
-    TF32 on, as cuDNN runs f32 by default).  Returns {dtype: {block:
-    figures}}."""
+    DenseNet-121's four block shapes.  Returns {dtype: {block: figures}}."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     k4 = {}
     for dname, dtype in K4_DTYPES.items():
-        f32 = dtype == torch.float32
         k4[dname] = {}
         for i, (name, shape) in enumerate({**K4_BLOCKS,
                                            **K4_MORE_BLOCKS}.items()):
@@ -550,54 +372,8 @@ def k4_phase(dev, flush, stamp):
                   f"{list(got.shape)} L={dims[4]} d={dil} {dname}: {text}",
                   flush=True)
             assert ok, f"K4 disagrees with its plain version at {name} {dname}"
-            del got
-            ms = time_ms(lambda: kernels.dense_block_eval(
-                *bargs, dilation=dil), 20, flush)
-            plain_ms = time_ms(lambda: kernels.dense_block_eval_plain(
-                *bargs, dilation=dil), 3, flush)
-            convs = dense_block_convs(*dims, dil, dev, dtype)
-            lib_ms = time_ms(convs, 20, flush)
-            flop, nbytes = kernels.dense_block_work(
-                *dims, elem_bytes=dtype.itemsize)
-            bound_ms, bound_by = bound(
-                flop, nbytes, PEAK_F32_PRODUCTS if f32 else PEAK_BF16)
-            gflop = flop / 1e9
-            extra = ""
-            lib_tf32_ms = None
-            if f32:
-                torch.backends.cudnn.allow_tf32 = True
-                lib_tf32_ms = time_ms(convs, 20, flush)
-                torch.backends.cudnn.allow_tf32 = False
-                extra = (f", with TF32 (not f32-accurate) "
-                         f"{lib_tf32_ms:.4f} ms")
-            del convs
-            print(f"K4 {name} {dname}: {gflop:.2f} GFLOP, {nbytes / 1e6:.1f} "
-                  f"MB; bound {bound_ms:.4f} ms ({bound_by}); kernel "
-                  f"{ms:.4f} ms ({gflop / ms:.1f} TFLOP/s, "
-                  f"{bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} "
-                  f"ms ({gflop / plain_ms:.1f} TFLOP/s); cuDNN's "
-                  f"{2 * dims[4]} convs alone {lib_ms:.4f} ms "
-                  f"({gflop / lib_ms:.1f} TFLOP/s){extra} {stamp}",
-                  flush=True)
-            k4[dname][name] = dict(
-                ms=ms, plain_ms=plain_ms, **figures, lib_ms=lib_ms,
-                lib_tf32_ms=lib_tf32_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
-            if f32:
-                split = split_ms(
-                    lambda: kernels.dense_block_eval(*bargs, dilation=dil),
-                    K4_F32_KERNELS, {"tf32_split": 1,
-                                     "conv1x1_bn_relu": dims[4],
-                                     "conv3x3": dims[4]})
-                earlier_ms, earlier_split = K4_F32_EARLIER[name]
-                print(f"K4 {name} f32 a call by kernel (torch.profiler): "
-                      f"{json.dumps({k: round(v, 4) for k, v in split.items()})}"
-                      f" ms, {ms:.4f} ms in all; earlier design (the split "
-                      f"in the product loops, mma.sync; earlier values, "
-                      f"K4_F32_EARLIER) {earlier_ms} ms, by kernel "
-                      f"{json.dumps(earlier_split)} {stamp}", flush=True)
-                k4[dname][name]["split"] = split
-            del bargs
+            k4[dname][name] = figures
+            del got, bargs
     torch.backends.cudnn.allow_tf32 = tf32
     return k4
 
@@ -729,147 +505,17 @@ def perturb_(model, seed):
                 m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.2)
 
 
-def nms_case(rs, b, n):
-    """Score-sorted boxes with clusters, padding rows, equal scores and
-    same-size pairs whose IoU (W-d)/(W+d) is at or next to 0.4 (d = 3W/7)."""
-    boxes = np.zeros((b, n, 4), np.float32)
-    for i in range(b):
-        centers = rs.uniform([0, 0], [1200, 350], (24, 2))
-        c = centers[rs.integers(0, 24, n)] + rs.normal(0, 8, (n, 2))
-        wh = rs.uniform(20, 160, (n, 2))
-        boxes[i, :, :2] = c - wh / 2
-        boxes[i, :, 2:] = c + wh / 2
-        # every 7th row: a shifted copy of the row before it at IoU ~ 0.4
-        for j in range(1, n, 7):
-            w = boxes[i, j - 1, 2] - boxes[i, j - 1, 0] + 1.0
-            d = np.float32(3.0 * w / 7.0) + np.float32(rs.integers(-2, 3)) \
-                * np.float32(1e-5) * w
-            boxes[i, j] = boxes[i, j - 1] + np.array([d, 0, d, 0], np.float32)
-    scores = np.round(rs.uniform(0.05, 1.0, (b, n)), 2).astype(np.float32)
-    scores = -np.sort(-scores, axis=1)
-    scores[:, -n // 10:] = 0.0                         # padding rows
-    return boxes, scores
-
-
-def k2_flagship_input(model, args):
-    """K2's input on the flagship's main path, captured once: the decoded,
-    score-sorted top-``nms_topN_pre`` rows of one batch through
-    ``make_infer``'s steps (boxes [B, 3000, 4], scores [B, 3000], f32)."""
-    (images_u8, means, stds, rois, rois_3d, p2, p2_inv, scale, bmeans,
-     bstds) = args
-    dcfg = load_config("groomed_nms").detect_config()
-    with torch.inference_mode():
-        images = preprocess_images(images_u8, None, means, stds, target_h=512,
-                                   crop_w=1760, out_dtype=torch.bfloat16)
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            outs = rpn_outputs_dict(model(images))
-        sel, sr, sr3 = select_top_pre_nms(outs, rois, rois_3d, dcfg)
-        d, s = decode_detections(sel, sr, sr3, p2, p2_inv, scale, bmeans,
-                                 bstds, dcfg)
-        k = min(dcfg.nms_topN_pre, s.shape[1])
-        return d[:, :k, :4].contiguous(), s[:, :k].contiguous()
-
-
-def kernel_events(prof):
-    """The CUDA kernels of a torch.profiler trace after its last spin kernel:
-    the profiler can deliver a trace's kernels to the next trace, so each
-    trace starts with ``torch.cuda._sleep`` as a marker."""
-    from torch.autograd import DeviceType
-    ks = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    start = max((e.time_range.start for e in ks if "spin_kernel" in e.name),
-                default=float("-inf"))
-    return [e for e in ks if e.time_range.start > start]
-
-
-def trace_kernels(fn, reps=1):
-    """The CUDA kernels (``kernel_events``) of ``reps`` calls of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return kernel_events(prof)
-
-
-def split_ms(fn, names, per_call=None, reps=3):
-    """Device ms of a call of ``fn`` in the kernels whose name holds each of
-    ``names`` (``trace_kernels``): the mean kernel time over ``reps`` calls
-    times its launches a call (``per_call``, default 1).  A kernel that the
-    profiler missed leaves the mean as it is."""
-    per_call = per_call or {}
-    kernels_ = trace_kernels(fn, reps)
-    out = {}
-    for name in names:
-        us = [e.time_range.elapsed_us() for e in kernels_ if name in e.name]
-        out[name] = sum(us) / len(us) * per_call.get(name, 1) / 1e3 \
-            if us else 0.0
-    return out
-
-
-K2_KERNELS = ("nms_mask", "nms_sweep")
-
-
-def k2_work_bound(b, n):
-    """K2's least time at [b, n], (ms, limiter): each pair of rows tested
-    once (kernels.IOU_TEST_OPS f32 operations), boxes, scores and keep
-    moved once."""
-    return bound(b * n * (n - 1) // 2 * kernels.IOU_TEST_OPS,
-                 b * n * (16 + 4 + 1), PEAK_F32)
-
-
-def k2_phase(name, boxes, scores, flush, stamp):
-    """K2 against its plain version on one input: identical keep masks,
-    then kernel and plain times and the mask / sweep split of a call.
-    Returns {ms, plain_ms, kept, split}."""
+def k2_check(name, boxes, scores):
+    """K2 against its plain version on one input: identical keep masks."""
     keep = kernels.greedy_nms(boxes, scores, nms_threshold=0.4, shift=1.0)
     keep_ref = kernels.greedy_nms_plain(boxes, scores, nms_threshold=0.4,
                                         shift=1.0)
     n_diff = int((keep != keep_ref).sum().item())
     assert n_diff == 0, f"K2 keep mask differs from the plain version in " \
                         f"{n_diff} of {keep.numel()} rows ({name})"
-    ms = time_ms(lambda: kernels.greedy_nms(boxes, scores), 50, flush)
-    plain_ms = time_ms(lambda: kernels.greedy_nms_plain(boxes, scores), 3,
-                       flush)
-    split = split_ms(lambda: kernels.greedy_nms(boxes, scores), K2_KERNELS)
-    kept, valid = int(keep.sum()), int((scores > 0).sum())
     print(f"K2 greedy_nms {name} {list(scores.shape)}: keep masks identical "
-          f"({kept} kept of {valid} valid rows); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms; a call by kernel (torch.profiler) "
-          f"{json.dumps({k: round(v, 4) for k, v in split.items()})} {stamp}",
+          f"({int(keep.sum())} kept of {int((scores > 0).sum())} valid rows)",
           flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, kept=kept, split=split)
-
-
-def wall_ms(fn, reps):
-    """Mean host time of ``fn`` over ``reps`` runs, synchronised: for
-    host-bound work (many small launches) that a user waits for."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def analysis_boxes(rs, n):
-    """The box recipe of analysis/bench_groomed_nms.py: [1, n, 4] f32 and
-    [1, n] scores."""
-    x1, y1 = rs.uniform(0, 1600, n), rs.uniform(0, 480, n)
-    w, h = rs.uniform(30, 300, n), rs.uniform(30, 200, n)
-    boxes = np.stack([x1, y1, x1 + w, y1 + h], 1)[None].astype(np.float32)
-    return boxes, rs.uniform(0, 1, (1, n)).astype(np.float32)
-
-
-def k3_case(name, b, n):
-    """K3's inputs at a named shape: score-sorted clustered boxes with
-    padding rows (scores 0) for "train", the analysis recipe otherwise."""
-    if name == "train":
-        return nms_case(np.random.default_rng(20), b, n)
-    boxes, scores = analysis_boxes(np.random.default_rng(0), n)
-    return boxes, -np.sort(-scores, axis=1)
 
 
 def wide_range_boxes(rs, b, n):
@@ -900,30 +546,21 @@ def k3_check(name, boxes, valid):
     return errs
 
 
-def k3_phase(dev, flush, stamp):
-    """K3 against its plain version at each of K3_SHAPES (timed), the edge
-    sizes and the wide-range boxes; returns {shape name: {ms, plain_ms,
-    max_abs}}."""
+def k3_phase(dev):
+    """K3 against its plain version at each of K3_SHAPES, the edge sizes
+    and the wide-range boxes; returns {shape name: max |err| of the
+    prune}."""
     k3 = {}
     for name, (b, n) in K3_SHAPES.items():
         boxes_np, scores_np = k3_case(name, b, n)
         boxes = torch.from_numpy(boxes_np).to(dev)
         valid = torch.from_numpy(scores_np > 0).to(dev)
         errs = k3_check(name, boxes, valid)
-        ms = time_ms(lambda: kernels.fused_iou_prune(boxes, valid), 50, flush)
-        plain_ms = time_ms(lambda: kernels.fused_iou_prune_plain(
-            boxes, valid), 20, flush)
-        bound_ms, bound_by = bound(*kernels.iou_prune_work(b, n), PEAK_F32)
-        k3[name] = dict(ms=ms, plain_ms=plain_ms, max_abs=max(errs.values()),
-                        bound_ms=bound_ms, bound_by=bound_by)
+        k3[name] = max(errs.values())
         print(f"K3 fused_iou_prune {name} [{b}, {n}, 4] "
               f"({int(valid.sum())} valid rows): IoU identical, prune "
               f"max|err| {json.dumps(errs)} (linear 0, else atol "
-              f"{K3_ATOL:g}); kernel {ms:.4f} ms ({b * n * n / ms / 1e6:.2f} "
-              f"Gpairs/s, {bound_ms / ms:.1%} of the {bound_ms:.4f} ms "
-              f"bound by {bound_by}), plain {plain_ms:.4f} ms "
-              f"({b * n * n / plain_ms / 1e6:.2f} Gpairs/s) {stamp}",
-              flush=True)
+              f"{K3_ATOL:g})", flush=True)
     for b, n in K3_EDGE:
         boxes_np, scores_np = nms_case(np.random.default_rng(n), b, n)
         k3_check(f"[{b}, {n}]", torch.from_numpy(boxes_np).to(dev),
@@ -938,57 +575,17 @@ def k3_phase(dev, flush, stamp):
     return k3
 
 
-# the grouping's device kernels: the cluster path's one, the two-kernel
-# path's two
-GROUP_KERNELS = ("group_cluster", "group_bits", "group_sweep")
-
-
-def group_case(b, n, kind, dev, seed):
-    """The grouping's input on ``dev``: m [b, n, n] f32 and valid [b, n].
-    "iou": the IoU of ``nms_case``'s clustered boxes, left unmasked, with
-    its padding rows and a hole every 9th row; "mixed": that IoU scaled by
-    random gains in [0.75, 1.25) (asymmetric), 1% of its entries exactly
-    at the 0.4 threshold and 0.5% NaN."""
-    rs = np.random.default_rng(seed)
-    boxes_np, scores_np = nms_case(rs, b, n)
-    valid_np = scores_np > 0
-    valid_np[:, ::9] = False
-    boxes = torch.from_numpy(boxes_np).to(dev)
-    m = kernels.fused_iou_prune_plain(
-        boxes, torch.ones((b, n), dtype=torch.bool, device=dev))[0]
-    if kind == "mixed":
-        g = torch.Generator(device=dev).manual_seed(seed)
-        m = m * (0.75 + 0.5 * torch.rand(m.shape, generator=g, device=dev))
-        u = torch.rand(m.shape, generator=g, device=dev)
-        m = torch.where(u < 0.01, torch.full_like(m, 0.4), m)
-        m = torch.where(u > 0.995, torch.full_like(m, float("nan")), m)
-    return m.contiguous(), torch.from_numpy(valid_np).to(dev)
-
-
-def group_cases():
-    """The grouping's (B, N) checks: row-block edges (63-65, 128 on two
-    CTAs, 576 on nine), the cluster path's limit on both sides, the
-    two-kernel path and its largest N.  A function, not a constant, so that
-    ``scripts/k3_compare.py`` can load this file beside an older package."""
-    limit = kernels._GROUP_CLUSTER_MAX_N
-    return tuple((b, n) for n in (1, 63, 64, 65, 128, 512, 576, 1000,
-                                  limit - 1, limit, limit + 1, 4096)
-                 for b in (1, 8)) + ((1, kernels._GROUP_MAX_N),)
-
-
 def group_path_launches():
     """{path: launches so far} of the grouping kernel's two paths."""
     return {"cluster": kernels.group_leaders.cluster_launches,
             "two_kernel": kernels.group_leaders.two_kernel_launches}
 
 
-def group_phase(dev, flush, stamp):
+def group_phase(dev):
     """The grouping kernel against its plain version at group_cases(), each
     case on the path ``group_leaders_plan`` names (by the per-path launch
-    counts), then timed on the operator's own input (K3's IoU of the sorted
-    rows) at each of K3_SHAPES.  Returns {ms, plain_ms, bound_ms, bound_by,
-    split} at [8, 512] with the same under "analysis" at [1, 1000], and
-    "paths": the per-path launches of the timed calls."""
+    counts), then on the operator's own input (K3's IoU of the sorted rows)
+    at each of K3_SHAPES, on the cluster path."""
     cases = group_cases()
     for b, n in cases:
         path = kernels.group_leaders_plan(n).path
@@ -1013,7 +610,6 @@ def group_phase(dev, flush, stamp):
           f"asymmetric overlaps (ties at the threshold, NaN), group sizes "
           f"{list(GROUP_SIZES)}; N <= {limit} on the cluster path, above it "
           f"on the two-kernel path, as planned", flush=True)
-    out = {}
     for name, (b, n) in K3_SHAPES.items():
         boxes_np, scores_np = k3_case(name, b, n)
         valid = torch.from_numpy(scores_np > 0).to(dev)
@@ -1021,90 +617,25 @@ def group_phase(dev, flush, stamp):
                                     valid)[0]
         kw = dict(nms_threshold=0.4, group_size=100)
         plan = kernels.group_leaders_plan(n)
+        before = group_path_launches()
         leader = kernels.group_leaders(m, valid, **kw)
+        after = group_path_launches()
         assert torch.equal(leader, kernels.group_leaders_plain(m, valid, **kw))
         leaders = int((leader == torch.arange(n, device=dev)).sum())
-        before = group_path_launches()
-        ms = time_ms(lambda: kernels.group_leaders(m, valid, **kw), 50, flush)
-        after = group_path_launches()
         paths = {k: after[k] - before[k] for k in after}
-        assert paths == {"cluster": 51, "two_kernel": 0}, \
+        assert paths == {"cluster": 1, "two_kernel": 0}, \
             f"the grouping at [{b}, {n}] left the cluster path: {paths}"
-        plain_ms = time_ms(lambda: kernels.group_leaders_plain(m, valid, **kw),
-                           10, flush)
-        split = split_ms(lambda: kernels.group_leaders(m, valid, **kw),
-                         GROUP_KERNELS)
-        bound_ms, bound_by = bound(*kernels.group_leaders_work(b, n), PEAK_F32)
-        earlier = f", earlier design (bits + sweep) {GROUP_TWO_KERNEL_MS} " \
-            f"ms" if name == "train" else ""
         print(f"group_leaders on the operator's input {name} [{b}, {n}] "
               f"({int(valid.sum())} valid rows, {leaders} leaders), "
               f"{plan.path} path, {plan.ctas} CTAs, {plan.smem} B of shared "
-              f"memory a CTA: kernel "
-              f"{ms:.4f} ms ({bound_ms / ms:.1%} of the {bound_ms:.4f} ms "
-              f"bound by {bound_by}){earlier}, plain {plain_ms:.4f} ms; a call "
-              f"by kernel (torch.profiler) "
-              f"{json.dumps({k: round(v, 4) for k, v in split.items()})}; "
-              f"launches by path over the timed calls {json.dumps(paths)} "
-              f"{stamp}", flush=True)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, split=split, paths=paths,
-                         plan=plan._asdict())
-    return dict(out.pop("train"), analysis=out["analysis"])
+              f"memory a CTA: identical to its plain version; launches by "
+              f"path {json.dumps(paths)}", flush=True)
 
 
-def operator_inputs(name, dev):
-    """The operator's input at a K3_SHAPES name: (scores, boxes, valid),
-    the rows unsorted (the operator sorts them, ties by index), on dev."""
-    b, n = K3_SHAPES[name]
-    boxes_np, scores_np = k3_case(name, b, n)
-    perm = np.random.default_rng(21).permutation(n)
-    scores = torch.from_numpy(scores_np[:, perm])
-    return (scores.to(dev), torch.from_numpy(boxes_np[:, perm]).to(dev),
-            (scores > 0).to(dev))
-
-
-def operator_split(scores, boxes, valid, flush, reps=20):
-    """The operator's stages at the shipped config, each run alone on the
-    outputs of the one before: sort (order, sorted rows), K3, the grouping,
-    grouping + rescore (``differentiable_nms_sorted``), unsort, and the
-    whole operator.  Returns {"host": {stage: ms}, "device": {stage: ms}}:
-    host ms of ``reps`` synchronised runs (``wall_ms``) and device ms
-    (``time_ms``, CUDA events)."""
-    from groomed_nms_torch.ops import groomed_nms as gn
-    order = gn._descending(gn._sort_key(scores, valid))
-    v = torch.gather(valid, 1, order)
-    rows = gn._rows(boxes.float(), order).contiguous()
-    s = torch.gather(scores, 1, order)
-    iou, prune = kernels.fused_iou_prune(rows, v)
-    res = gn.differentiable_nms_sorted(s, iou, prune, v)
-
-    def sort():
-        o = gn._descending(gn._sort_key(scores, valid))
-        return (torch.gather(valid, 1, o),
-                gn._rows(boxes.float(), o).contiguous(),
-                torch.gather(scores, 1, o))
-
-    stages = {
-        "sort": sort,
-        "K3": lambda: kernels.fused_iou_prune(rows, v),
-        "grouping": lambda: gn.group_leaders(iou, s, v, 0.4, 100),
-        "grouping + rescore": lambda: gn.differentiable_nms_sorted(
-            s, iou, prune, v),
-        "unsort": lambda: gn._unsort(res, order),
-        "operator": lambda: gn.groomed_nms_boxes(scores, boxes, valid),
-    }
-    return {"host": {k: round(wall_ms(f, reps), 4) for k, f in stages.items()},
-            "device": {k: round(time_ms(f, reps, flush), 4)
-                       for k, f in stages.items()}}
-
-
-def operator_phase(dev, flush, stamp):
+def operator_phase(dev):
     """GrooMeD-NMS of unsorted rows (sort, K3, grouping, rescoring) on the
     card against the CPU path at each of K3_SHAPES: one K3 and one grouping
-    launch a call, no host synchronisation; timed on the host, with the
-    split by stage.  Returns {shape name: {ms, split}}."""
-    out = {}
+    launch a call, no host synchronisation."""
     for name, (b, n) in K3_SHAPES.items():
         args_g = operator_inputs(name, dev)
         ref = groomed_nms_boxes(*(t.cpu() for t in args_g))
@@ -1127,21 +658,14 @@ def operator_phase(dev, flush, stamp):
         same_leader = torch.equal(got.leader.cpu(), ref.leader)
         same_keep = torch.equal(got.keep.cpu(), ref.keep)
         err = (got.rescored.cpu() - ref.rescored).abs().max().item()
-        ms = wall_ms(lambda: groomed_nms_boxes(*args_g), 20)
-        split = operator_split(*args_g, flush)
         print(f"operator groomed_nms_boxes {name} [{b}, {n}]: leaders "
               f"identical {same_leader}, keep identical {same_keep} "
               f"({int(ref.keep.sum())} kept, {int((ref.leader >= 0).sum())} "
               f"grouped), rescored max|err| {err:.3e} (atol "
               f"{OPERATOR_ATOL:g}); launches {launches}, no host sync "
-              f"(sync debug mode error); {ms:.3f} ms, "
-              f"{b * n / ms / 1e3:.3f} Mboxes/s {stamp}", flush=True)
-        print(f"operator split {name} [{b}, {n}] ms by stage: "
-              f"{json.dumps(split)} {stamp}", flush=True)
+              f"(sync debug mode error)", flush=True)
         assert same_leader and same_keep and err <= OPERATOR_ATOL, \
             f"the operator on the card disagrees with the CPU path ({name})"
-        out[name] = dict(ms=ms, split=split)
-    return out
 
 
 def groomed_test_phase(stamp):
@@ -3740,24 +3264,13 @@ def tools_phase(dev, stamp):
     print(f"tools (d) bench_groomed_nms_torch: {json.dumps(gb)} {stamp}",
           flush=True)
 
-    # (e) analysis/roofline_train_torch.py: train, train --remat layer, infer
-    roof = {}
-    rt = load_tool("analysis/roofline_train_torch.py")
-    for name, argv in (("train", ["--mode", "train"]),
-                       ("train_remat_layer", ["--mode", "train", "--remat",
-                                              "layer"]),
-                       ("infer", ["--mode", "infer"])):
-        roof[name], launches[f"roofline_{name}"] = tool_launches(
-            lambda: rt.main([*argv, "--iters", str(TIMED)]))
-    print(f"tools (e) roofline_train_torch: {json.dumps(roof)}", flush=True)
-
-    # (f) analysis/bench_loader_torch.py on phase 13's tree
+    # (e) analysis/bench_loader_torch.py on phase 13's tree
     loader, _ = tool_launches(lambda: load_tool(
         "analysis/bench_loader_torch.py").main(
             ["--data-root", os.path.join(TRAIN_DIR, "data"), "--iters", "10",
              "--warmup", "2"]))
 
-    # (g) analysis/compare_video_training_schemes_torch.py
+    # (f) analysis/compare_video_training_schemes_torch.py
     with tempfile.TemporaryDirectory(prefix="chip_smoke_schemes_") as d:
         t0 = time.perf_counter()
         path = load_tool("analysis/compare_video_training_schemes_torch.py"
@@ -3767,18 +3280,17 @@ def tools_phase(dev, stamp):
             schemes = json.load(f)
     finite = all(v is None or np.isfinite(v) for m in schemes.values()
                  for v in m.values())
-    print(f"tools (g) compare_video_training_schemes_torch --iters 4 --batch "
+    print(f"tools (f) compare_video_training_schemes_torch --iters 4 --batch "
           f"2 in {time.perf_counter() - t0:.1f} s: {json.dumps(schemes)}; "
           f"finite or null {finite} {stamp}", flush=True)
     assert set(schemes) == {"direct", "fused", "untrained"} and finite
 
     for part, n in launches.items():
         assert n["dense_block_eval"] == 0, f"{part} launched K4"
-    for part in ("profile_infer", "latency", "roofline_infer"):
+    for part in ("profile_infer", "latency"):
         assert launches[part]["fused_head_scores"] > 0 and \
             launches[part]["greedy_nms"] > 0, f"{part}: no K1 or K2 launch"
-    for part in ("remat", "profile_train", "roofline_train",
-                 "roofline_train_remat_layer", "groomed_bench"):
+    for part in ("remat", "profile_train", "groomed_bench"):
         assert launches[part]["fused_iou_prune"] > 0 and \
             launches[part]["group_leaders"] > 0, f"{part}: no K3 or grouping"
     print(f"tools: launches by part {json.dumps(launches)}; loader "
@@ -3848,9 +3360,8 @@ def main():
 
     # -- 4. K2 --------------------------------------------------------------
     boxes_np, scores_np = nms_case(np.random.default_rng(2), *K2_SHAPE)
-    k2 = {"synthetic": k2_phase("synthetic", torch.from_numpy(boxes_np).to(dev),
-                                torch.from_numpy(scores_np).to(dev), flush,
-                                stamp)}
+    k2_check("synthetic", torch.from_numpy(boxes_np).to(dev),
+             torch.from_numpy(scores_np).to(dev))
 
     # -- 5. slice -----------------------------------------------------------
     # (a) against the CPU path (the kernels' plain versions, which the CPU
@@ -3909,8 +3420,7 @@ def main():
           f"{wall * 1e3:.1f} ms: {img_s:.2f} img/s, {wall * 1e3 / TIMED:.2f} "
           f"ms/batch; launches {launches}; {int(valid.sum())} valid rows, "
           f"{n_txt} KITTI files {stamp}", flush=True)
-    k2["flagship"] = k2_phase("flagship input", *k2_flagship_input(model, args),
-                              flush, stamp)
+    k2_check("flagship input", *k2_flagship_input(model, args))
 
     # where a batch's device time goes, stage by stage (CUDA events, each
     # stage alone on the outputs of the one before)
@@ -3949,7 +3459,7 @@ def main():
           flush=True)
 
     # -- 6. K4 --------------------------------------------------------------
-    k4 = k4_phase(dev, flush, stamp)
+    k4 = k4_phase(dev)
 
     # -- 7. fast_eval slice --------------------------------------------------
     # (a) the engine on the card against the engine on the CPU (its plain
@@ -4000,50 +3510,22 @@ def main():
         "fast_eval disagrees with rpn3d"
     del rpn, engine_full, out_r, out_f
 
-    # (c) the flagship through make_infer with engine="fast_eval", timed
-    infer_f, args_f, engine = build_flagship(device="cuda", engine="fast_eval")
-    rate_f, fe_launches, n_valid = serve_rate(
+    # (c) the flagship through make_infer with engine="fast_eval"
+    infer_f, args_f, _ = build_flagship(device="cuda", engine="fast_eval")
+    _, fe_launches, n_valid = serve_rate(
         infer_f, args_f, {"fused_head_scores": 1, "greedy_nms": 1,
                           "dense_block_eval": 2})
     print(f"fast_eval (c): {TIMED} batches of {batch} at 512x1760 bf16: "
-          f"{rate_f:.2f} img/s, {batch * 1e3 / rate_f:.2f} ms/batch; "
-          f"launches {fe_launches}; {n_valid} valid rows {stamp}",
-          flush=True)
-
-    with torch.inference_mode():
-        bb = engine.backbone
-        x = bb.stem(images)
-        k4_inputs = []
-        for stage in bb.stages:
-            if isinstance(stage, KernelDenseBlock):
-                k4_inputs.append((stage, x))
-            x = stage(x)
-        (blk1, x1), (blk2, x2) = k4_inputs
-        fe_stages = {
-            "rpn3d trunk": lambda: forward(model.backbone),
-            "fast_eval trunk": lambda: bb(images),
-            "K4 block1": lambda: blk1(x1),
-            "K4 block2": lambda: blk2(x2),
-            "fast_eval model": lambda: engine(images),
-        }
-        fe_breakdown = {k: round(time_ms(fn, 5, flush), 4)
-                        for k, fn in fe_stages.items()}
-    fe_breakdown["fast_eval trunk outside K4"] = round(
-        fe_breakdown["fast_eval trunk"] - fe_breakdown["K4 block1"]
-        - fe_breakdown["K4 block2"], 4)
-    print(f"fast_eval breakdown ms/batch-8: {json.dumps(fe_breakdown)} "
-          f"{stamp}", flush=True)
-
+          f"launches {fe_launches}; {n_valid} valid rows", flush=True)
 
     # -- 8-11. K3, the grouping and the operator, GrooMeD-NMS at test time,
     # training ---------------------------------------------------------------
-    del model, engine, infer, infer_f, args_f, images, outs, bb, x1, x2, \
-        k4_inputs, stages, fe_stages
+    del model, infer, infer_f, args_f, images, outs, stages
     torch.cuda.empty_cache()
     fe32_launches = fast_eval_f32_phase(dev, stamp)    # 7 (d), (e)
-    k3 = k3_phase(dev, flush, stamp)
-    group = group_phase(dev, flush, stamp)
-    operator_phase(dev, flush, stamp)
+    k3 = k3_phase(dev)
+    group_phase(dev)
+    operator_phase(dev)
     groomed_test_phase(stamp)
     train_launches = train_phase(stamp)
     eval_phase(dev, flush, stamp)
@@ -4056,35 +3538,21 @@ def main():
     tools = tools_phase(dev, stamp)
 
     # -- 20. results ----------------------------------------------------------
-    # bounds at the timed shapes: K1 reads the bf16 head and the f32
-    # acceptance and writes f32 scores; K2 tests each pair of rows once and
-    # moves boxes, scores and keep (its times on the main path's own input,
-    # the flagship's decoded rows); K3 tests the lower triangle and writes
-    # two f32 [B, N, N] matrices; the grouping reads m's strict lower
-    # triangle.  No single PyTorch call computes K1-K3's functions or the
-    # grouping (library_ms null); K4's is its cuDNN yardstick (phase 6)
+    # K1's bound at its timed shape: it reads the bf16 head and the f32
+    # acceptance and writes f32 scores; no single PyTorch call computes its
+    # function (library_ms null).  K2-K4's and the grouping's times, bounds
+    # and yardsticks are the compare scripts' (scripts/*_compare.py)
     b, r, per = K1_SHAPE                    # 4 class logits a row
     k1_bound = bound(b * r * 4 * HEAD_OPS, b * r * (per * 2 + 4 + 4),
                      PEAK_F32)
-    k2_bound = k2_work_bound(*K2_SHAPE)
+
     def k4_figures(dname, launches):
-        # one batch's two blocks (1 and 2): ms, plain_ms, bound_ms and
-        # library_ms are block 1 + block 2; the bound from the two blocks'
-        # summed work
+        # the worst of one batch's two blocks (1 and 2)
         main = [k4[dname][n] for n in K4_BLOCKS]
-        nbytes = 2 if dname == "bf16" else 4
-        work = [kernels.dense_block_work(*s[:-1], elem_bytes=nbytes)
-                for s in K4_BLOCKS.values()]
-        ms_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work),
-                         PEAK_BF16 if dname == "bf16" else PEAK_F32_PRODUCTS)
         return {"launches": launches,
                 "max_abs_err": max(v["max_abs"] for v in main),
                 "max_rel_err": max(v["max_rel"] for v in main),
-                "mean_rel_err": max(v["mean_rel"] for v in main),
-                "ms": sum(v["ms"] for v in main),
-                "plain_ms": sum(v["plain_ms"] for v in main),
-                "bound_ms": ms_bound[0], "bound_by": ms_bound[1],
-                "library_ms": sum(v["lib_ms"] for v in main)}
+                "mean_rel_err": max(v["mean_rel"] for v in main)}
     entries = [
         {"name": "fused_head_scores", "route": "triton",
          "source": "groomed_nms_torch/ops/kernels.py",
@@ -4107,9 +3575,7 @@ def main():
          "source": "groomed_nms_torch/csrc/greedy_nms.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:266",
          "launches": launches["greedy_nms"], "max_abs_err": 0.0,
-         "ms": k2["flagship"]["ms"], "plain_ms": k2["flagship"]["plain_ms"],
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None, "video": video["greedy_nms"],
+         "video": video["greedy_nms"],
          "export": {"launches": export_launches["greedy_nms"],
                     "video_launches": export_video["full width f32"][
                         "greedy_nms"]},
@@ -4126,19 +3592,15 @@ def main():
          "replaces": "groomed_nms_tpu/ops/pallas_dense_block.py:140",
          **k4_figures("bf16", fe_launches["dense_block_eval"]),
          "f32": {"source": "groomed_nms_torch/csrc/dense_block_f32.cu",
-                 **k4_figures("f32", fe32_launches["dense_block_eval"]),
-                 "split": {n: v["split"] for n, v in k4["f32"].items()}},
+                 **k4_figures("f32", fe32_launches["dense_block_eval"])},
          "blocks": k4,
          "parallel": parallel["dense_block_eval"]},
-        # launches: the full-size train loop's; ms at its shape [8, 512, 4]
+        # launches: the full-size train loop's
         {"name": "fused_iou_prune", "route": "cuda",
          "source": "groomed_nms_torch/csrc/iou_prune.cu",
          "replaces": "groomed_nms_tpu/ops/pallas_kernels.py:76",
          "launches": train_launches["fused_iou_prune"],
-         "max_abs_err": max(v["max_abs"] for v in k3.values()),
-         "ms": k3["train"]["ms"], "plain_ms": k3["train"]["plain_ms"],
-         "bound_ms": k3["train"]["bound_ms"],
-         "bound_by": k3["train"]["bound_by"], "library_ms": None,
+         "max_abs_err": max(k3.values()),
          "export": {"launches": export_launches["fused_iou_prune"]},
          "options": {"jitter_launches":
                      options["jitter"]["fused_iou_prune"]},
@@ -4147,15 +3609,11 @@ def main():
              "dryrun_train_launches_a_rank":
              parallel["dryrun_train_launches"]["fused_iou_prune"]}},
         # no TPU kernel: the JAX grouping is a lax.while_loop; launches the
-        # train loop's, ms on the operator's own input at [8, 512]
+        # train loop's
         {"name": "group_leaders", "route": "cuda",
          "source": "groomed_nms_torch/csrc/group_leaders.cu",
          "replaces": "groomed_nms_tpu/ops/groomed_nms.py:94",
          "launches": train_launches["group_leaders"], "max_abs_err": 0.0,
-         "ms": group["ms"], "plain_ms": group["plain_ms"],
-         "bound_ms": group["bound_ms"], "bound_by": group["bound_by"],
-         "library_ms": None, "split": group["split"],
-         "paths": group["paths"], "analysis": group["analysis"],
          "export": {"launches": export_launches["group_leaders"]},
          "options": {"jitter_launches": options["jitter"]["group_leaders"]},
          "parallel": {"train_launches_a_rank_a_step": parallel[

@@ -6,20 +6,23 @@ CUDA card: its trunk, each K4 block, the whole model and a served batch.
 
 Each checkout runs in a process of its own (two checkouts hold packages of
 one name), in the order others, this, this, others reversed.  A process
-imports its checkout's ``groomed_nms_torch`` and ``chip_smoke``, builds the
-flagship's fast_eval engine (``build_flagship(engine="fast_eval")``: batch
-8, 512x1760, bf16, seeded weights), and prints one JSON line: the median
-device ms (``chip_smoke.time_ms``, L2 flushed before each of ``--reps``
-runs) of the trunk, of each K4 block on its own input, of the trunk outside
-K4 and of the whole model, and the host ms of a served batch through
-``make_infer`` (mean of ``--reps``, synchronised), and the device ms of
-one trunk call by ATen operator (``torch.profiler``, the largest
-``TOP_OPS``).  Then one line per checkout with its readings, each with the
+imports its checkout's ``groomed_nms_torch``, loads this checkout's
+``card_measure.py`` by path (so a checkout without one can be compared),
+builds the flagship's fast_eval engine (``build_flagship(engine=
+"fast_eval")``: batch 8, 512x1760, bf16, seeded weights), and prints one
+JSON line: the median device ms (``card_measure.time_ms``, L2 flushed
+before each of ``--reps`` runs) of the trunk, of each K4 block on its own
+input, of the trunk outside K4 and of the whole model, and the host ms of
+a served batch through ``make_infer`` (mean of ``--reps``, synchronised),
+and the device ms of one trunk call by ATen operator (``torch.profiler``,
+the largest ``TOP_OPS``).  Then one line per checkout with its readings, each with the
 card's name and power limit.
-Needs a CUDA card; imports torch and the checkouts' packages only.
+Needs a CUDA card; imports torch, this checkout's ``card_measure.py`` and
+the checkouts' packages only.
 """
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -28,6 +31,11 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
+# run as a file, this directory comes first on sys.path, and
+# scripts/profile.py there shadows the standard library's profile (which
+# the custom ops' first call imports through torch._dynamo)
+if Path(sys.path[0]).resolve() == ROOT / "scripts":
+    sys.path.pop(0)
 TOP_OPS = 16
 
 
@@ -58,7 +66,10 @@ def measure(root, reps):
     """One reading of the checkout at ``root``, in this process."""
     sys.path.insert(0, str(root))
     import torch
-    from chip_smoke import card_line, time_ms, wall_ms
+    spec = importlib.util.spec_from_file_location("card_measure",
+                                                  ROOT / "card_measure.py")
+    cm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cm)
     from groomed_nms_torch.data.augment import preprocess_images
     from groomed_nms_torch.flagship import build_flagship
     from groomed_nms_torch.models.fast_eval import KernelDenseBlock
@@ -78,13 +89,13 @@ def measure(root, reps):
                 blocks.append((stage, x))
             x = stage(x)
         (blk1, x1), (blk2, x2) = blocks
-        out = {name: time_ms(fn, reps, flush) for name, fn in (
+        out = {name: cm.time_ms(fn, reps, flush) for name, fn in (
             ("trunk", lambda: bb(images)), ("K4 block1", lambda: blk1(x1)),
             ("K4 block2", lambda: blk2(x2)), ("model", lambda: engine(images)))}
         split = by_op(lambda: bb(images))
     out["trunk outside K4"] = out["trunk"] - out["K4 block1"] - out["K4 block2"]
-    out["served batch (host)"] = wall_ms(lambda: infer(*args), reps)
-    out["card"] = card_line()
+    out["served batch (host)"] = cm.wall_ms(lambda: infer(*args), reps)
+    out["card"] = cm.card_line()
     out["trunk by op"] = split
     return out
 

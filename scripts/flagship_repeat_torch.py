@@ -7,7 +7,7 @@ Usage:
 
 Each run builds ``flagship.build_flagship_train()`` (groomed_nms, batch 8,
 512x1760, bf16 autocast, seed 0) and takes ``--steps`` steps on its one
-batch, as ``chip_smoke.py`` phase 11 (b) does (3 warm-up + 10 timed steps),
+batch, as the smoke run's phase 11 (b) does (3 warm-up + 10 timed steps),
 under the flags that phase runs with: cuDNN autotuning on, TF32 on for
 convolutions and off for matmuls.  After each step the loss and every
 gradient are checked.  At the first step with a non-finite one, the step is

@@ -7,17 +7,18 @@ CUDA card, with each call split into its mask and sweep kernels.
 Builds ``groomed_nms_torch/csrc/greedy_nms.cu`` of this checkout and, with
 ``--other``, the same file of other checkouts (the parent commit unpacked by
 ``git archive``, say), with the same nvcc flags.  On two inputs at the main
-path's shape [8, 3000] -- ``chip_smoke.nms_case`` (clustered boxes, padding
+path's shape [8, 3000] -- ``card_measure.nms_case`` (clustered boxes, padding
 rows, IoUs at and next to the 0.4 threshold) and the flagship's own K2
 input (the decoded top-3000 rows of one rpn3d batch, seeded weights) -- it
 checks each library's keep mask against ``greedy_nms_plain`` (identical, or
 the library is marked), times them in the order others, this, this, others
 reversed (median device ms of ``--reps`` calls, L2 flushed before each), and
 sums the device time of a call's kernels by name (``nms_mask``,
-``nms_sweep``; ``chip_smoke.split_ms``).  Prints one line per reading, each
+``nms_sweep``; ``card_measure.split_ms``).  Prints one line per reading, each
 with the card's name and power limit, then one JSON object.  A library that
 disagrees is still timed, marked so, and makes the exit code 1.  Needs a
-CUDA card; imports torch, numpy and groomed_nms_torch only.
+CUDA card; imports torch, numpy, ``card_measure.py`` and groomed_nms_torch
+only.
 """
 
 import argparse
@@ -31,16 +32,22 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# run as a file, this directory comes first on sys.path, and
+# scripts/profile.py there shadows the standard library's profile (which
+# the custom ops' first call imports through torch._dynamo)
+if Path(sys.path[0]).resolve() == ROOT / "scripts":
+    sys.path.pop(0)
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (K2_KERNELS, K2_SHAPE, card_line,  # noqa: E402
-                        k2_flagship_input, k2_work_bound, nms_case, split_ms,
-                        time_ms)
+from card_measure import (K2_SHAPE, card_line,  # noqa: E402
+                          k2_flagship_input, k2_work_bound, nms_case,
+                          split_ms, time_ms)
 from groomed_nms_torch.flagship import build_flagship  # noqa: E402
 from groomed_nms_torch.ops import _build, kernels  # noqa: E402
 
 SOURCE = Path("groomed_nms_torch/csrc/greedy_nms.cu")
 THRESHOLD, SHIFT = 0.4, 1.0
+K2_KERNELS = ("nms_mask", "nms_sweep")
 
 
 def load(path):

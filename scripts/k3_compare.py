@@ -7,7 +7,7 @@ and of other ones, on one CUDA card.
 K3: builds ``groomed_nms_torch/csrc/iou_prune.cu`` of this checkout and,
 with ``--other``, of other checkouts (the parent commit unpacked by ``git
 archive``, say), with the same nvcc flags, and loads each library with the
-same C entry.  At ``chip_smoke.K3_SHAPES`` ([8, 512] clustered boxes with
+same C entry.  At ``card_measure.K3_SHAPES`` ([8, 512] clustered boxes with
 padding rows, [1, 1000] the analysis recipe) it checks each library's IoU
 and linear prune against ``fused_iou_prune_plain`` (identical, or the
 library is marked) and times them in the order others, this, this, others
@@ -18,7 +18,7 @@ computed.
 
 The operator: each checkout in a process of its own (two checkouts hold
 packages of one name), in the same order.  A process puts its checkout's
-package first on the path, loads this checkout's ``chip_smoke.py`` (its
+package first on the path, loads this checkout's ``card_measure.py`` (its
 ``operator_inputs`` and ``operator_split``) and prints one JSON line: the
 host ms of ``groomed_nms_boxes`` (mean of ``--reps`` synchronised calls) and
 its split by stage at both shapes, and the host ms of a batch of the
@@ -79,25 +79,25 @@ def measure_operator(root, reps):
     process: {shape name: {ms, split}, "served": ms a batch}."""
     sys.path.insert(0, str(root))
     import torch
-    spec = importlib.util.spec_from_file_location("smoke",
-                                                  ROOT / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    spec = importlib.util.spec_from_file_location("card_measure",
+                                                  ROOT / "card_measure.py")
+    cm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cm)
     from groomed_nms_torch.flagship import build_flagship
     from groomed_nms_torch.ops.groomed_nms import groomed_nms_boxes
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     out = {}
-    for name in smoke.K3_SHAPES:
-        args = smoke.operator_inputs(name, dev)
+    for name in cm.K3_SHAPES:
+        args = cm.operator_inputs(name, dev)
         out[name] = dict(
-            ms=smoke.wall_ms(lambda: groomed_nms_boxes(*args), reps),
-            split=smoke.operator_split(*args, flush, reps))
+            ms=cm.wall_ms(lambda: groomed_nms_boxes(*args), reps),
+            split=cm.operator_split(*args, flush, reps))
     torch.backends.cudnn.benchmark = True
     infer, served, _ = build_flagship(device="cuda", differentiable_nms=True)
     for _ in range(3):
         infer(*served)
-    out["served"] = smoke.wall_ms(lambda: infer(*served), 10)
+    out["served"] = cm.wall_ms(lambda: infer(*served), 10)
     return out
 
 
@@ -116,8 +116,8 @@ def main():
 
     sys.path.insert(0, str(ROOT))
     import torch
-    from chip_smoke import (K3_SHAPES, PEAK_F32, bound, card_line,
-                            k3_case, time_ms)
+    from card_measure import (K3_SHAPES, PEAK_F32, bound, card_line,
+                              k3_case, time_ms)
     from groomed_nms_torch.ops import _build, kernels
 
     if not torch.cuda.is_available():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the dense-block kernel K4 of this checkout, and of another one, on
-one CUDA card, with each call split into its 1x1 and 3x3 kernels.
+one CUDA card, with each call split into its 1x1 and 3x3 kernels, beside
+cuDNN's convolutions of the same block.
 
     python3 scripts/k4_compare.py [--other DIR ...] [--reps 20]
         [--dtype bf16|f32]
@@ -12,18 +13,20 @@ for f32 ``csrc/dense_block_f32.cu`` where the checkout has it (the entry
 that takes a scratch for the weights' TF32 halves) and ``dense_block.cu``'s
 ``dense_block_eval_f32`` where it does not (the earlier design; checkouts
 that predate K4's f32 entry take bf16 only).  At each of the flagship's two
-kernel blocks (``chip_smoke.K4_BLOCKS``; in f32 also DenseNet-121's
-blocks 3-4, ``chip_smoke.K4_MORE_BLOCKS``), in ``--dtype``, it checks
-each library against
-``dense_block_eval_plain`` with chip_smoke.py's rule
-(``chip_smoke.k4_agrees``), times them in
-the order others, this, this, others reversed (median device ms of
-``--reps`` calls, L2 flushed before each), and sums the device time of a
-call's kernels by name (``chip_smoke.split_ms``).  Prints one line per
+kernel blocks (``card_measure.K4_BLOCKS``; in f32 also DenseNet-121's
+blocks 3-4, ``card_measure.K4_MORE_BLOCKS``), in ``--dtype``, it checks
+each library against ``dense_block_eval_plain`` with the smoke run's rule
+(``card_measure.k4_agrees``), times them in the order others, this, this,
+others reversed (median device ms of ``--reps`` calls, L2 flushed before
+each), and sums the device time of a call's kernels by name
+(``card_measure.split_ms``).  As a yardstick it times the block's 2L cuDNN
+convolutions alone in the same dtype (``dense_block_convs``; in f32 with
+TF32 off, and on as cuDNN runs f32 by default).  Prints one line per
 reading, each with the card's name and power limit, then one JSON object.
 A library that disagrees is still timed, marked so (a variant with a part
 switched off, to see what that part costs), and makes the exit code 1.
-Needs a CUDA card; imports torch, numpy and groomed_nms_torch only.
+Needs a CUDA card; imports torch, numpy, ``card_measure.py`` and
+groomed_nms_torch only.
 """
 
 import argparse
@@ -35,13 +38,20 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[1]
+# run as a file, this directory comes first on sys.path, and
+# scripts/profile.py there shadows the standard library's profile (which
+# the custom ops' first call imports through torch._dynamo)
+if Path(sys.path[0]).resolve() == ROOT / "scripts":
+    sys.path.pop(0)
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (K4_BLOCKS, K4_DTYPES, K4_MORE_BLOCKS,  # noqa: E402
-                        PEAK_BF16, PEAK_F32_PRODUCTS, bound, card_line,
-                        dense_block_case, k4_agrees, split_ms, time_ms)
+from card_measure import (K4_BLOCKS, K4_DTYPES,  # noqa: E402
+                          K4_MORE_BLOCKS, PEAK_BF16, PEAK_F32_PRODUCTS,
+                          bound, card_line, dense_block_case, k4_agrees,
+                          split_ms, time_ms)
 from groomed_nms_torch.ops import _build, kernels  # noqa: E402
 
 CSRC = Path("groomed_nms_torch/csrc")
@@ -72,6 +82,32 @@ def load(path, dtype, scratch):
     size = lib.dense_block_eval_f32_scratch
     size.argtypes, size.restype = [i] * 4, ctypes.c_longlong
     return fn, size
+
+
+def dense_block_convs(b, c0, h, w, layers, growth, bw, dil, dev,
+                      dtype=torch.bfloat16):
+    """K4's yardstick (the port never calls it): the block's 2L cuDNN
+    convolutions alone in ``dtype``, channels_last; per layer the 1x1 from
+    a contiguous [b, cin, h, w] to bw and the dilated 3x3 from [b, bw, h, w]
+    to G.  No BatchNorm, ReLU or concatenation.  Returns a function that
+    runs them all (in f32, with whatever ``cudnn.allow_tf32`` is set when
+    it runs)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def t(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.1).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+
+    xs = [t(b, c0 + l * growth, h, w) for l in range(layers)]
+    k1s = [t(bw, c0 + l * growth, 1, 1) for l in range(layers)]
+    k2s = [t(growth, bw, 3, 3) for _ in range(layers)]
+    hin = t(b, bw, h, w)
+
+    def run():
+        for x, k1, k2 in zip(xs, k1s, k2s):
+            F.conv2d(x, k1)
+            F.conv2d(hin, k2, padding=dil, dilation=dil)
+    return run
 
 
 def run(entry, x0, mul1, add1, w1, mul2, add2, w2, dilation):
@@ -166,6 +202,21 @@ def main():
                   f"kernel (torch.profiler): "
                   f"{json.dumps({k: round(v, 4) for k, v in split.items()})} "
                   f"{stamp}", flush=True)
+        convs = dense_block_convs(*dims, dil, dev, dtype)
+        lib_ms = time_ms(convs, opts.reps, flush)
+        yard = dict(ms=lib_ms)
+        extra = ""
+        if dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = True
+            yard["tf32_ms"] = time_ms(convs, opts.reps, flush)
+            torch.backends.cudnn.allow_tf32 = False
+            extra = (f", with TF32 (not f32-accurate) {yard['tf32_ms']:.4f} "
+                     f"ms")
+        del convs
+        results[f"{block} {opts.dtype} cuDNN"] = yard
+        print(f"{block} {opts.dtype} yardstick: cuDNN's {2 * dims[4]} convs "
+              f"alone {lib_ms:.4f} ms ({flop / 1e9 / lib_ms:.1f} TFLOP/s)"
+              f"{extra} {stamp}", flush=True)
     print(json.dumps(results))
     if wrong:
         raise SystemExit(f"disagree with the plain version: {sorted(wrong)}")

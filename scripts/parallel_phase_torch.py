@@ -26,6 +26,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from card_measure import card_line  # noqa: E402
 from groomed_nms_torch.ops import _build  # noqa: E402
 
 
@@ -39,7 +40,7 @@ def main():
     from groomed_nms_torch.training.checkpoint import save_checkpoint
 
     dev = torch.device("cuda")
-    stamp = f"[{cs.card_line()}]"
+    stamp = f"[{card_line()}]"
     print(stamp, torch.__version__, torch.version.cuda, flush=True)
     for src in ("greedy_nms.cu", "iou_prune.cu", "group_leaders.cu",
                 "png_unfilter.cpp"):

@@ -87,7 +87,8 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from groomed_nms_torch.utils import measure, spans
+    import card_measure as measure
+    from groomed_nms_torch.utils import spans
 
     device = measure.tool_device(args.device)
     print(measure.header(device), flush=True)

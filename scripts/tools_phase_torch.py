@@ -24,6 +24,7 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from card_measure import card_line  # noqa: E402
 from groomed_nms_torch.ops import _build  # noqa: E402
 
 
@@ -36,7 +37,7 @@ def main():
     from groomed_nms_torch.data.synthetic import make_synthetic_kitti
 
     dev = torch.device("cuda")
-    stamp = f"[{cs.card_line()}]"
+    stamp = f"[{card_line()}]"
     print(stamp, torch.__version__, torch.version.cuda, flush=True)
     sources = ("greedy_nms.cu", "iou_prune.cu", "group_leaders.cu",
                "png_unfilter.cpp")

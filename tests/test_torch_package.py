@@ -67,6 +67,18 @@ def test_serving_scripts_import_without_jax(script, argv):
     assert out.returncode == 0, out.stderr
 
 
+# an import of one of these raises in the subprocesses below
+BLOCKER = (
+    "import importlib.abc, sys\n"
+    "BLOCKED = ('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', "
+    "'matplotlib')\n"
+    "class Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in BLOCKED:\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
 @pytest.mark.parametrize("script,argv", [
     ("train_torch", ["--config", "groomed_nms", "--dist-backend", "gloo"]),
     ("evaluate_torch", ["--config", "groomed_nms", "--dist-backend", "nccl"]),
@@ -79,7 +91,6 @@ def test_serving_scripts_import_without_jax(script, argv):
     ("determine_seqs_torch", ["--root", "data", "--ids", "val.txt"]),
     ("analysis/bench_latency_torch", ["--batches", "1", "8"]),
     ("analysis/bench_groomed_nms_torch", ["1000", "20"]),
-    ("analysis/roofline_train_torch", ["--remat", "layer"]),
     ("analysis/bench_loader_torch", ["--synthetic", "8"]),
     ("analysis/compare_video_training_schemes_torch", ["--iters", "4"]),
     ("analysis/detection_stats_torch", ["--results", "r", "--gt", "g"]),
@@ -87,30 +98,66 @@ def test_serving_scripts_import_without_jax(script, argv):
 def test_torch_scripts_import_without_jax(script, argv):
     """The train, evaluate, pose and tracking entry points, the bf16
     loop's repeat script and the tool twins, imported with their arguments
-    parsed and the package's parallel layer and measurement helpers loaded,
+    parsed and the package's parallel layer and ``card_measure.py`` loaded,
     pull in none of the modules the GPU machine lacks: they are blocked
     (an import of one raises) and none is in ``sys.modules``."""
     path = os.path.join(ROOT, *(script if "/" in script
                                 else "scripts/" + script).split("/")) + ".py"
-    code = (
-        "import importlib.abc, importlib.util, sys\n"
-        "BLOCKED = ('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', "
-        "'matplotlib')\n"
-        "class Block(importlib.abc.MetaPathFinder):\n"
-        "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in BLOCKED:\n"
-        "            raise ImportError(f'{name} is blocked')\n"
-        "sys.meta_path.insert(0, Block())\n"
+    code = BLOCKER + (
+        "import importlib.util\n"
         f"spec = importlib.util.spec_from_file_location('s', {path!r})\n"
         "mod = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(mod)\n"
         f"mod.parse_args({argv!r})\n"
         "import groomed_nms_torch.parallel.dryrun\n"
-        "import groomed_nms_torch.utils.measure\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'groomed_nms_tpu', 'PIL', 'matplotlib'))\n"
+        "import card_measure\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("script", ["k2_compare", "k3_compare", "k4_compare",
+                                    "group_compare", "fast_eval_compare"])
+def test_compare_scripts_print_their_help_without_jax(script):
+    """Each compare script, run as a file with ``--help`` in a fresh
+    interpreter with the modules the GPU machine lacks blocked, imports
+    what it needs at the top and exits 0 with its usage, and leaves the
+    standard library's ``profile`` importable (``scripts/profile.py``
+    shadows it; the custom ops' first call imports it through
+    ``torch._dynamo``)."""
+    path = os.path.join(ROOT, "scripts", script + ".py")
+    code = BLOCKER + (
+        "import runpy\n"
+        f"sys.argv = [{path!r}, '--help']\n"
+        f"sys.path[0] = {os.path.dirname(path)!r}\n"
+        "try:\n"
+        f"    runpy.run_path({path!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "import cProfile\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout and "--reps" in out.stdout
+
+
+def test_card_measure_loads_by_path_without_the_package(tmp_path):
+    """``card_measure.py`` loaded by path, as a compare script loads it into
+    a process that runs another checkout's package, imports no module of
+    ``groomed_nms_torch`` and none that the GPU machine lacks."""
+    code = BLOCKER + (
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('card_measure', "
+        f"{os.path.join(ROOT, 'card_measure.py')!r})\n"
+        "cm = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(cm)\n"
+        "assert cm.K3_SHAPES and cm.K4_BLOCKS and callable(cm.time_ms)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "BLOCKED + ('groomed_nms_torch',))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
 

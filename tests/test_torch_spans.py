@@ -10,7 +10,7 @@ reduction by the benchmark (``benchmark/harness/spans.py``), on the CPU.
   launches and copies from threads without a span put down to the main
   thread's span, syncs and launches that waited, idle split by span, a
   kernel with no host call unattributed, and the metrics.
-- ``utils/measure.trace_kernel_ms`` counts overlapping kernels once.
+- ``card_measure.trace_kernel_ms`` counts overlapping kernels once.
 """
 
 import contextlib
@@ -23,9 +23,10 @@ import torch
 
 from groomed_nms_torch.flagship import build_flagship, build_flagship_train
 from groomed_nms_torch.models.densenet import tiny_densenet_config
-from groomed_nms_torch.utils import measure, spans
+from groomed_nms_torch.utils import spans
 
 sys.path.append(str(Path(__file__).resolve().parents[1] / "benchmark"))
+import card_measure  # noqa: E402
 from harness import spans as bench_spans  # noqa: E402
 
 TRUNK = ["trunk.stem", "trunk.block1", "trunk.transition1", "trunk.block2",
@@ -229,4 +230,4 @@ def test_trace_kernel_ms_counts_overlapping_kernels_once(tmp_path):
         {"ph": "X", "cat": "kernel", "name": "c", "ts": 20, "dur": 5},
         {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 0,
          "dur": 100}]}))
-    assert measure.trace_kernel_ms(str(path)) == pytest.approx(0.02)
+    assert card_measure.trace_kernel_ms(str(path)) == pytest.approx(0.02)

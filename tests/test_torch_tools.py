@@ -16,9 +16,6 @@ against the JAX tools, on the CPU at small sizes.
 - ``determine_seqs`` and ``detection_stats``: the same stdout as the JAX
   scripts (the mapping files of the video tree; the GT and detection lines
   of ``test_analysis_tools.py``).
-- The roofline's counts: the analytic FLOPs and bytes of a small conv
-  stack, and its guard tripping on a forged time; its ``main()`` in both
-  modes.
 - The profile (a Chrome trace written), the latency table and the loader
   bench (its JSON line) through their ``main()`` on the CPU.
 """
@@ -35,7 +32,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from groomed_nms_tpu.models import video as jv
 from groomed_nms_tpu.models import densenet as jdensenet
@@ -194,7 +190,6 @@ def test_tools_refuse_a_missing_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for path, argv in (("analysis/bench_groomed_nms_torch.py", ["8", "1"]),
                        ("analysis/bench_latency_torch.py", ["--batches", "1"]),
-                       ("analysis/roofline_train_torch.py", []),
                        ("scripts/profile_torch.py", [])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _load(path).main(argv)
@@ -275,48 +270,8 @@ def test_detection_stats_matches_jax(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the roofline, the profile, the latency table, the loader bench
+# the profile, the latency table, the loader bench
 # ---------------------------------------------------------------------------
-
-def test_roofline_counts_a_conv_stack():
-    tool = _load("analysis/roofline_train_torch.py")
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(2, 3, 16, 20, generator=g)
-    w1 = torch.randn(8, 3, 3, 3, generator=g)
-    w2 = torch.randn(4, 8, 1, 1, generator=g)
-
-    def stack():
-        return F.conv2d(F.conv2d(x, w1, padding=1), w2)
-
-    flops, nbytes, kbytes = tool.count(stack)
-    hw = 16 * 20
-    assert flops == 2 * 2 * hw * (8 * 3 * 9 + 4 * 8)
-    mid, out = 2 * 8 * hw, 2 * 4 * hw
-    assert nbytes == 4 * ((x.numel() + w1.numel() + mid)
-                          + (mid + w2.numel() + out))
-    assert kbytes == 0
-
-
-def test_roofline_guard_trips_on_a_forged_time():
-    tool = _load("analysis/roofline_train_torch.py")
-    ok = tool.roofline("train", 8, 1e12, 1e9, 0, 0.1)      # 10 TFLOP/s
-    assert ok["pct_of_tensor_peak"] == pytest.approx(100 * 10 / 989,
-                                                     abs=0.01)
-    with pytest.raises(SystemExit, match="exceeds"):
-        tool.roofline("train", 8, 1e12, 1e9, 0, 1e-4)      # 10 PFLOP/s
-
-
-@pytest.mark.parametrize("argv", [
-    ["--mode", "train", "--remat", "layer"], ["--mode", "infer"]])
-def test_roofline_main_on_the_cpu(argv):
-    tool = _load("analysis/roofline_train_torch.py")
-    out = tool.main([*argv, "--device", "cpu", "--batch", "2", "--iters",
-                     "1", "--crop", "64", "128", "--src", "48", "96"])
-    assert out["logical_tflop_per_call"] > 0
-    assert out["kernel_traffic_gb_per_call"] > 0     # the custom ops seen
-    assert out["logical_traffic_gb_per_call"] > \
-        out["kernel_traffic_gb_per_call"]
-
 
 @pytest.mark.parametrize("mode", ["infer", "train"])
 def test_profile_main_writes_a_trace(tmp_path, mode):
